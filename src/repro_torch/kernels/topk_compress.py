@@ -1,0 +1,187 @@
+"""Hopper wire-codec kernels: blockwise tie-capped Top-K encode and decode.
+
+The port's counterparts of the Pallas kernels ``encode_topk`` and
+``decode_topk`` in the JAX package's ``kernels/topk_compress.py``.  The
+CUDA source is ``csrc/topk_codec.cu`` (one CTA per 4096-element block; the
+design note is at its top).  It is compiled with ``nvcc`` for ``sm_90a``
+into ``build/`` at the repository root on first use and loaded with
+``ctypes``; nothing is built when this module is imported.
+
+Each wrapper takes the plain version in :mod:`repro_torch.kernels.ref` for a
+tensor on the CPU, and only then.  For a CUDA tensor it launches its kernel
+on the current stream or raises; a failed build or launch raises.  Each
+wrapper counts its launches in its ``launches`` attribute
+(:func:`reset_launch_counts` sets them to 0).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from . import ref
+
+DEFAULT_BLOCK = 4096        # elements per block, as in the JAX package
+MAX_BLOCK = 4096            # the CUDA kernels stage one block in shared memory
+
+_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "topk_codec.cu"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_lib: Optional[ctypes.CDLL] = None
+
+
+def build_dir() -> Path:
+    """``build/`` at the repository root (``src/repro_torch/kernels`` up
+    three levels)."""
+    return Path(__file__).resolve().parents[3] / "build"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the topk codec kernels")
+
+
+def build_library() -> Path:
+    """Compile ``csrc/topk_codec.cu`` unless a library built from the same
+    source bytes is already in ``build/``.  Returns the library's path; the
+    compiler's resource report (``-Xptxas -v``) goes to the ``.log`` beside
+    it."""
+    src = _SOURCE.read_bytes()
+    digest = hashlib.sha1(src).hexdigest()[:12]
+    out = build_dir() / f"libtopk_codec-{digest}.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)            # atomic: concurrent builds agree
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the codec library."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn in (lib.topk_encode, lib.topk_decode):
+            fn.argtypes = [p, p, p, ll, i, i, i, i, p]
+            fn.restype = i
+        _lib = lib
+    return _lib
+
+
+def _clamp_k(k_per_block: int, block: int) -> int:
+    return int(min(max(k_per_block, 1), block))
+
+
+def _check_block(block: int) -> None:
+    if block % 32:
+        raise ValueError(f"block must be a multiple of 32, got {block}")
+
+
+def _check_cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} must be a CPU or CUDA tensor, got "
+                         f"{t.device}")
+
+
+def _launch(fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
+
+
+def encode_topk(x: torch.Tensor, k_per_block: int,
+                block: int = DEFAULT_BLOCK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Wire encode: (values (nb, k) in index order, bitmap (nb, B/32) int32
+    words carrying the uint32 bits).  Exactly k slots per block."""
+    ref.check_codec_dtype(x)
+    _check_block(block)
+    k = _clamp_k(k_per_block, block)
+    if x.device.type == "cpu":
+        return ref.encode_topk_ref(x, k, block)
+    _check_cuda(x, "x")
+    if block > MAX_BLOCK:
+        raise ValueError(f"the CUDA encode takes blocks of at most "
+                         f"{MAX_BLOCK} elements, got {block}")
+    flat = x.reshape(-1).contiguous()
+    n = flat.numel()
+    nb = -(-n // block)
+    values = torch.empty((nb, k), dtype=x.dtype, device=x.device)
+    bitmap = torch.empty((nb, block // 32), dtype=torch.int32,
+                         device=x.device)
+    if n == 0:
+        return values, bitmap
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(lib.topk_encode, flat.data_ptr(), values.data_ptr(),
+                bitmap.data_ptr(), n, nb, block, k, _KIND[x.dtype], stream)
+    encode_topk.launches += 1
+    return values, bitmap
+
+
+def decode_topk(values: torch.Tensor, bitmap: torch.Tensor,
+                shape: Tuple[int, ...]) -> torch.Tensor:
+    """Inverse of :func:`encode_topk`: dense tensor of ``shape``."""
+    shape = tuple(int(s) for s in shape)
+    ref.check_codec_dtype(values)
+    if values.device.type == "cpu":
+        return ref.decode_topk_ref(values, bitmap, shape)
+    _check_cuda(values, "values")
+    nb, k = values.shape
+    words = bitmap.shape[1]
+    block = words * 32
+    n = 1
+    for s in shape:
+        n *= s
+    if bitmap.device != values.device or bitmap.dtype != torch.int32 \
+            or bitmap.shape[0] != nb:
+        raise ValueError(f"bitmap must be int32 ({nb}, B/32) on "
+                         f"{values.device}, got {bitmap.dtype} "
+                         f"{tuple(bitmap.shape)} on {bitmap.device}")
+    if block > MAX_BLOCK or not 1 <= k <= block or n > nb * block:
+        raise ValueError(f"bad codec geometry: nb={nb} k={k} block={block} "
+                         f"for shape {shape}")
+    out = torch.empty(n, dtype=values.dtype, device=values.device)
+    if n == 0:
+        return out.reshape(shape)
+    lib = load_library()
+    values, bitmap = values.contiguous(), bitmap.contiguous()
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(lib.topk_decode, values.data_ptr(), bitmap.data_ptr(),
+                out.data_ptr(), n, nb, block, k, _KIND[values.dtype], stream)
+    decode_topk.launches += 1
+    return out.reshape(shape)
+
+
+encode_topk.launches = 0
+decode_topk.launches = 0
+
+#: the wrappers whose kernels run on the training path, by name
+KERNELS = {"encode_topk": encode_topk, "decode_topk": decode_topk}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
