@@ -372,9 +372,11 @@ def ef_compress(x: torch.Tensor, state: ErrorFeedbackState, k: int,
     """Compress (x + residual); remember what was dropped.
 
     Under a kernel dispatch mode the residual update belongs to the fused
-    encode kernel ``ef_encode_topk``
-    (:func:`repro_torch.kernels.ops.codec_ef_topk`), which is not ported to
-    CUDA yet: a CUDA tensor raises ``NotImplementedError`` there."""
+    encode kernel ``ef_encode_topk``, then the decode
+    (:func:`repro_torch.kernels.ops.codec_ef_topk`): the CUDA kernels for a
+    CUDA tensor, their plain versions for a CPU tensor.  The result equals,
+    bit for bit, what the EF training step composes from ``x + residual``,
+    the codec ``topk_mask`` and the difference."""
     from repro_torch.kernels import ops as _kops
     mode = _kops.resolve_policy(use_kernel, x.device)
     if mode != "global":

@@ -1,4 +1,12 @@
-"""Kernel dispatch policy for the compression hot path.
+"""Entry points over the Top-K kernels, plus the kernel dispatch policy of
+the compression hot path.
+
+``topk_mask(x, k)`` takes a global k, as
+:func:`repro_torch.core.compression.topk_mask` does, and splits it into a
+per-block k (ceil split) for the dense blockwise kernel.  The entry points
+here take the kernel for a CUDA tensor and its plain version for a CPU
+tensor (the wrappers in :mod:`repro_torch.kernels.topk_compress` decide by
+device).
 
 Every ``use_kernel`` argument on the hot path (``compress_for_edge``,
 ``boundary_compress``, ``ef_compress``, ``topk_mask``) accepts a policy,
@@ -21,7 +29,6 @@ from typing import Tuple, Union
 
 import torch
 
-from . import ref as kref
 from . import topk_compress as tk
 
 Policy = Union[bool, str, None]
@@ -31,6 +38,9 @@ POLICIES = (False, True, None, "off", "auto", "force")
 
 encode_topk = tk.encode_topk
 decode_topk = tk.decode_topk
+ef_encode_topk = tk.ef_encode_topk
+blockwise_topk_mask = tk.blockwise_topk_mask
+ef_topk = tk.ef_topk
 
 
 def resolve_policy(policy: Policy, device: torch.device) -> str:
@@ -58,14 +68,24 @@ def per_block_k(n: int, k: int, block: int = tk.DEFAULT_BLOCK) -> int:
     return max(1, -(-int(k) // nb))
 
 
+def topk_mask(x: torch.Tensor, k: int,
+              block: int = tk.DEFAULT_BLOCK) -> torch.Tensor:
+    """Global-k API -> per-block k (keeps ~k total, exact per block)."""
+    return tk.blockwise_topk_mask(x, per_block_k(x.numel(), k, block), block)
+
+
+def _check_mode(x: torch.Tensor, mode: str) -> None:
+    if mode == "cuda" and x.device.type != "cuda":
+        raise ValueError(f"mode 'cuda' on a tensor on {x.device}")
+
+
 def codec_topk_mask(x: torch.Tensor, k: int, mode: str,
                     block: int = tk.DEFAULT_BLOCK) -> torch.Tensor:
     """Wire-faithful sparsification: encode (threshold search + bitmap +
     packed-value compaction) then decode — the consumer sees exactly what
     the "mask" wire encoding carried.  ``mode`` is a resolved policy; the
     wrappers pick kernel or plain version by ``x``'s device."""
-    if mode == "cuda" and x.device.type != "cuda":
-        raise ValueError(f"mode 'cuda' on a tensor on {x.device}")
+    _check_mode(x, mode)
     kpb = per_block_k(x.numel(), k, block)
     values, bitmap = tk.encode_topk(x, kpb, block)
     return tk.decode_topk(values, bitmap, tuple(x.shape))
@@ -74,12 +94,9 @@ def codec_topk_mask(x: torch.Tensor, k: int, mode: str,
 def codec_ef_topk(x: torch.Tensor, residual: torch.Tensor, k: int, mode: str,
                   block: int = tk.DEFAULT_BLOCK
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Error-feedback codec round trip: (sent, new_residual).  Its fused
-    kernel, ``ef_encode_topk``, is not ported yet: a CUDA tensor raises."""
-    if mode == "cuda" or x.device.type == "cuda":
-        raise NotImplementedError(
-            "the error-feedback codec kernel ef_encode_topk is not ported to "
-            "CUDA yet; use use_kernel='off' for error feedback on the card")
+    """Error-feedback codec round trip: (sent, new_residual), the residual
+    update fused into the encode (``ef_encode_topk``), then the decode."""
+    _check_mode(x, mode)
     kpb = per_block_k(x.numel(), k, block)
-    values, bitmap, newr = kref.ef_encode_topk_ref(x, residual, kpb, block)
-    return kref.decode_topk_ref(values, bitmap, tuple(x.shape)), newr
+    values, bitmap, newr = tk.ef_encode_topk(x, residual, kpb, block)
+    return tk.decode_topk(values, bitmap, tuple(x.shape)), newr

@@ -1,11 +1,17 @@
-"""Plain PyTorch versions of the wire-codec kernels.
+"""Plain PyTorch versions of the Top-K kernels.
 
 Each function here computes exactly what its kernel in
 :mod:`repro_torch.kernels.topk_compress` computes, with ordinary tensor
 ops.  The CPU path and the tests use them; on the card they are the
 yardstick the CUDA kernels are held against, bit for bit.
 
-Selection (tie-capped, fixed wire capacity): per block of ``B`` elements,
+Dense masks (``blockwise_topk_mask_ref``, ``ef_topk_ref``): per block of
+``B`` elements keep every element whose ``|x|`` (as float32) is at least
+the block's k-th largest magnitude.  Ties at the threshold make that a
+*superset* of k elements, with no cap; the padding zeros of the last block
+take part in selection (with a threshold of 0 they are kept, then trimmed).
+
+Wire encode (tie-capped, fixed wire capacity): per block of ``B`` elements,
 keep everything whose ``|x|`` (as float32) is strictly above the block's
 k-th largest magnitude, plus the first ``k - n_above`` threshold ties in
 index order — exactly ``min(k, B)`` slots per block.  The padding zeros of
@@ -50,10 +56,24 @@ def _pad_to_blocks(flat: torch.Tensor, block: int) -> Tuple[torch.Tensor, int]:
     return flat, nb
 
 
+def _tiles(x: torch.Tensor, block: int) -> torch.Tensor:
+    if block % 32:
+        raise ValueError(f"block must be a multiple of 32, got {block}")
+    padded, nb = _pad_to_blocks(x.reshape(-1), block)
+    return padded.reshape(nb, block)
+
+
 def _mag_bits(tiles: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns of |tiles| as float32 — in the same order as the
     magnitudes, since they are non-negative (what the kernel searches)."""
     return tiles.to(torch.float32).abs().view(torch.int32)
+
+
+def _kth_bits(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th largest bit pattern of each row, as a (rows, 1) value.  A
+    value taken from a sort, so the sort's order among ties cannot change
+    it."""
+    return torch.sort(bits, dim=1, descending=True).values[:, k - 1:k]
 
 
 def _keep_capped(bits: torch.Tensor, k: int) -> torch.Tensor:
@@ -61,15 +81,44 @@ def _keep_capped(bits: torch.Tensor, k: int) -> torch.Tensor:
     strictly above the k-th largest bit pattern, plus the first
     ``k - n_above`` threshold ties in index order.
 
-    The threshold is a value (the k-th largest), so the sort's handling of
-    ties cannot change it; the tie cap is a cumsum in index order.
-    ``torch.topk`` is not index-stable on ties, so it never picks the set."""
-    thr = torch.sort(bits, dim=1, descending=True).values[:, k - 1:k]
+    The tie cap is a cumsum in index order.  ``torch.topk`` is not
+    index-stable on ties, so it never picks the set."""
+    thr = _kth_bits(bits, k)
     above = bits > thr
     n_above = above.sum(dim=1, keepdim=True, dtype=torch.int32)
     tie = bits == thr
     tie_rank = torch.cumsum(tie.to(torch.int32), dim=1)
     return above | (tie & (tie_rank <= (k - n_above)))
+
+
+def blockwise_topk_mask_ref(x: torch.Tensor, k_per_block: int,
+                            block: int = 4096) -> torch.Tensor:
+    """Dense blockwise Top-K: each ``block``-sized tile of the flat tensor
+    keeps every element with ``|x| >=`` its k-th largest magnitude (the tie
+    superset), zeros elsewhere; trimmed back to ``x.shape``."""
+    check_codec_dtype(x)
+    tiles = _tiles(x, block)
+    k = int(min(max(k_per_block, 1), block))
+    bits = _mag_bits(tiles)
+    out = torch.where(bits >= _kth_bits(bits, k), tiles,
+                      tiles.new_zeros(()))
+    return out.reshape(-1)[:x.numel()].reshape(x.shape)
+
+
+def ef_topk_ref(x: torch.Tensor, residual: torch.Tensor, k_per_block: int,
+                block: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback dense Top-K: compress ``c = x + residual`` with
+    :func:`blockwise_topk_mask_ref`, return ``(sent, c - sent)``.  Eager
+    torch rounds the sum to its storage dtype (the one torch's type
+    promotion gives) before selection, as the kernel's ``_force_rounding``
+    pins it in the JAX package."""
+    corrected = x + residual
+    sent = blockwise_topk_mask_ref(corrected, k_per_block, block)
+    return sent, corrected - sent
+
+
+def count_kept(x: torch.Tensor) -> int:
+    return int((x != 0).sum())
 
 
 def _shifts(device: torch.device) -> torch.Tensor:
@@ -99,10 +148,8 @@ def encode_topk_ref(x: torch.Tensor, k_per_block: int,
     """Wire encode: (values (nb, k) in index order, bitmap (nb, B/32) int32
     words).  Tie-capped — exactly k slots per block, the wire's capacity."""
     check_codec_dtype(x)
-    if block % 32:
-        raise ValueError(f"block must be a multiple of 32, got {block}")
-    padded, nb = _pad_to_blocks(x.reshape(-1), block)
-    tiles = padded.reshape(nb, block)
+    tiles = _tiles(x, block)
+    nb = tiles.shape[0]
     k = int(min(max(k_per_block, 1), block))
     keep = _keep_capped(_mag_bits(tiles), k)
     # boolean indexing walks rows in order, so each row's k survivors come
@@ -130,7 +177,9 @@ def ef_encode_topk_ref(x: torch.Tensor, residual: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Error-feedback wire encode: compress (x + residual), return
     (values, bitmap, new_residual) with new_residual = unsent corrected.
-    ``x + residual`` is rounded to the storage dtype by the addition itself."""
+    ``x + residual`` is rounded to the storage dtype by the eager addition
+    itself, before selection (what ``_force_rounding`` pins in the JAX
+    package); the kernel rounds the float sum the same way."""
     corrected = x + residual
     values, bitmap = encode_topk_ref(corrected, k_per_block, block)
     sent = decode_topk_ref(values, bitmap, tuple(corrected.shape))

@@ -1,9 +1,11 @@
-"""Hopper wire-codec kernels: blockwise tie-capped Top-K encode and decode.
+"""Hopper blockwise Top-K kernels: the wire codec (encode, error-feedback
+encode, decode) and the dense masks (plain and error-feedback).
 
-The port's counterparts of the Pallas kernels ``encode_topk`` and
-``decode_topk`` in the JAX package's ``kernels/topk_compress.py``.  The
-CUDA source is ``csrc/topk_codec.cu`` (one CTA per 4096-element block; the
-design note is at its top).  It is compiled with ``nvcc`` for ``sm_90a``
+The port's counterparts of the five Pallas kernels in the JAX package's
+``kernels/topk_compress.py``: ``encode_topk``, ``ef_encode_topk``,
+``decode_topk``, ``blockwise_topk_mask`` and ``ef_topk``.  The CUDA source
+is ``csrc/topk_codec.cu`` (one CTA per 4096-element block; the design note
+is at its top).  It is compiled with ``nvcc`` for ``sm_90a``
 into ``build/`` at the repository root on first use and loaded with
 ``ctypes``; nothing is built when this module is imported.
 
@@ -82,9 +84,13 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in (lib.topk_encode, lib.topk_decode):
-            fn.argtypes = [p, p, p, ll, i, i, i, i, p]
-            fn.restype = i
+        sigs = {"topk_encode": [p, p, p], "topk_decode": [p, p, p],
+                "topk_ef_encode": [p, p, p, p, p],
+                "topk_mask_dense": [p, p], "topk_ef_dense": [p, p, p, p]}
+        for name, ptrs in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [*ptrs, ll, i, i, i, i, p]   # n, nb, block, k,
+            fn.restype = i                              # kind, stream
         _lib = lib
     return _lib
 
@@ -104,10 +110,45 @@ def _check_cuda(t: torch.Tensor, what: str) -> None:
                          f"{t.device}")
 
 
+def _check_residual(x: torch.Tensor, residual: torch.Tensor) -> None:
+    """On the card the residual must be laid out as ``x`` is: the kernels
+    read both with one dtype and one index."""
+    if residual.dtype != x.dtype or residual.shape != x.shape \
+            or residual.device != x.device:
+        raise ValueError(
+            f"residual must have x's dtype, shape and device "
+            f"({x.dtype} {tuple(x.shape)} on {x.device}), got "
+            f"{residual.dtype} {tuple(residual.shape)} on {residual.device}")
+
+
+def _check_card_input(x: torch.Tensor, block: int) -> None:
+    _check_cuda(x, "x")
+    if block > MAX_BLOCK:
+        raise ValueError(f"the CUDA kernels take blocks of at most "
+                         f"{MAX_BLOCK} elements, got {block}")
+
+
 def _launch(fn, *args) -> None:
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
+
+
+def _run(fn, x: torch.Tensor, ptrs, n: int, nb: int, block: int,
+         k: int) -> None:
+    """Launch ``fn`` on the current stream of ``x``'s device."""
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(getattr(lib, fn), *ptrs, n, nb, block, k, _KIND[x.dtype],
+                stream)
+
+
+def _wire_outputs(x: torch.Tensor, nb: int, k: int, block: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.empty((nb, k), dtype=x.dtype, device=x.device),
+            torch.empty((nb, block // 32), dtype=torch.int32,
+                        device=x.device))
 
 
 def encode_topk(x: torch.Tensor, k_per_block: int,
@@ -119,25 +160,45 @@ def encode_topk(x: torch.Tensor, k_per_block: int,
     k = _clamp_k(k_per_block, block)
     if x.device.type == "cpu":
         return ref.encode_topk_ref(x, k, block)
-    _check_cuda(x, "x")
-    if block > MAX_BLOCK:
-        raise ValueError(f"the CUDA encode takes blocks of at most "
-                         f"{MAX_BLOCK} elements, got {block}")
+    _check_card_input(x, block)
     flat = x.reshape(-1).contiguous()
     n = flat.numel()
     nb = -(-n // block)
-    values = torch.empty((nb, k), dtype=x.dtype, device=x.device)
-    bitmap = torch.empty((nb, block // 32), dtype=torch.int32,
-                         device=x.device)
+    values, bitmap = _wire_outputs(x, nb, k, block)
     if n == 0:
         return values, bitmap
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(lib.topk_encode, flat.data_ptr(), values.data_ptr(),
-                bitmap.data_ptr(), n, nb, block, k, _KIND[x.dtype], stream)
+    _run("topk_encode", x, (flat.data_ptr(), values.data_ptr(),
+                            bitmap.data_ptr()), n, nb, block, k)
     encode_topk.launches += 1
     return values, bitmap
+
+
+def ef_encode_topk(x: torch.Tensor, residual: torch.Tensor, k_per_block: int,
+                   block: int = DEFAULT_BLOCK
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Error-feedback wire encode of ``c = x + residual`` (rounded to the
+    storage dtype): (values, bitmap) as :func:`encode_topk` gives for ``c``,
+    and the new residual, ``c`` where not kept and +0 where kept, shaped
+    like ``x``."""
+    ref.check_codec_dtype(x)
+    _check_block(block)
+    k = _clamp_k(k_per_block, block)
+    if x.device.type == "cpu":
+        return ref.ef_encode_topk_ref(x, residual, k, block)
+    _check_card_input(x, block)
+    _check_residual(x, residual)
+    flat, rflat = x.reshape(-1).contiguous(), residual.reshape(-1).contiguous()
+    n = flat.numel()
+    nb = -(-n // block)
+    values, bitmap = _wire_outputs(x, nb, k, block)
+    new_r = torch.empty_like(flat)
+    if n == 0:
+        return values, bitmap, new_r.reshape(x.shape)
+    _run("topk_ef_encode", x, (flat.data_ptr(), rflat.data_ptr(),
+                               values.data_ptr(), bitmap.data_ptr(),
+                               new_r.data_ptr()), n, nb, block, k)
+    ef_encode_topk.launches += 1
+    return values, bitmap, new_r.reshape(x.shape)
 
 
 def decode_topk(values: torch.Tensor, bitmap: torch.Tensor,
@@ -165,23 +226,67 @@ def decode_topk(values: torch.Tensor, bitmap: torch.Tensor,
     out = torch.empty(n, dtype=values.dtype, device=values.device)
     if n == 0:
         return out.reshape(shape)
-    lib = load_library()
     values, bitmap = values.contiguous(), bitmap.contiguous()
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(lib.topk_decode, values.data_ptr(), bitmap.data_ptr(),
-                out.data_ptr(), n, nb, block, k, _KIND[values.dtype], stream)
+    _run("topk_decode", values, (values.data_ptr(), bitmap.data_ptr(),
+                                 out.data_ptr()), n, nb, block, k)
     decode_topk.launches += 1
     return out.reshape(shape)
 
 
-encode_topk.launches = 0
-decode_topk.launches = 0
+def blockwise_topk_mask(x: torch.Tensor, k_per_block: int,
+                        block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """Dense blockwise Top-K: ``x`` with every element below its block's
+    k-th largest magnitude zeroed (threshold ties all kept)."""
+    ref.check_codec_dtype(x)
+    _check_block(block)
+    k = _clamp_k(k_per_block, block)
+    if x.device.type == "cpu":
+        return ref.blockwise_topk_mask_ref(x, k, block)
+    _check_card_input(x, block)
+    flat = x.reshape(-1).contiguous()
+    n = flat.numel()
+    out = torch.empty_like(flat)
+    if n == 0:
+        return out.reshape(x.shape)
+    _run("topk_mask_dense", x, (flat.data_ptr(), out.data_ptr()), n,
+         -(-n // block), block, k)
+    blockwise_topk_mask.launches += 1
+    return out.reshape(x.shape)
 
-#: the wrappers whose kernels run on the training path, by name
-KERNELS = {"encode_topk": encode_topk, "decode_topk": decode_topk}
+
+def ef_topk(x: torch.Tensor, residual: torch.Tensor, k_per_block: int,
+            block: int = DEFAULT_BLOCK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback dense Top-K of ``c = x + residual`` (rounded to the
+    storage dtype): ``(sent, c - sent)``, ``sent`` as
+    :func:`blockwise_topk_mask` gives for ``c``."""
+    ref.check_codec_dtype(x)
+    _check_block(block)
+    k = _clamp_k(k_per_block, block)
+    if x.device.type == "cpu":
+        return ref.ef_topk_ref(x, residual, k, block)
+    _check_card_input(x, block)
+    _check_residual(x, residual)
+    flat, rflat = x.reshape(-1).contiguous(), residual.reshape(-1).contiguous()
+    n = flat.numel()
+    sent, new_r = torch.empty_like(flat), torch.empty_like(flat)
+    if n == 0:
+        return sent.reshape(x.shape), new_r.reshape(x.shape)
+    _run("topk_ef_dense", x, (flat.data_ptr(), rflat.data_ptr(),
+                              sent.data_ptr(), new_r.data_ptr()), n,
+         -(-n // block), block, k)
+    ef_topk.launches += 1
+    return sent.reshape(x.shape), new_r.reshape(x.shape)
+
+
+#: every kernel's wrapper, by name; each counts its launches
+KERNELS = {"encode_topk": encode_topk, "ef_encode_topk": ef_encode_topk,
+           "decode_topk": decode_topk,
+           "blockwise_topk_mask": blockwise_topk_mask, "ef_topk": ef_topk}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+reset_launch_counts()

@@ -43,13 +43,16 @@ def train_fusion(cfg, *, batch: int = 8, seq: int = 128, steps: int = 50,
                  ratio: float = 100.0, testbed: int = 1,
                  device: DeviceLike = "cuda", use_kernel: Any = "auto",
                  data_order: int = 2, seed: int = 0,
+                 error_feedback: bool = False,
                  log: Optional[slog.StructuredLogger] = None,
                  log_every: int = 10) -> FusionRun:
     """Schedule ``cfg``'s OP-DAG on paper testbed ``testbed``, plan the
     compression (``none``/``uniform``/``adatopk`` at ``ratio``), and train
     ``steps`` AdamW steps through :class:`DecentralizedRuntime` on
     ``device``.  Weights are random, from ``seed``; data is
-    :class:`SyntheticLM` of Markov order ``data_order``."""
+    :class:`SyntheticLM` of Markov order ``data_order``.
+    ``error_feedback`` sets the compressing plans' own field: the runtime
+    then sends each boundary gradient through EF-SGD residual memory."""
     from repro_torch.core import (DecentralizedRuntime, network, plan_adatopk,
                                   plan_none, plan_uniform, schedule_opfence,
                                   simulate_iteration)
@@ -66,9 +69,11 @@ def train_fusion(cfg, *, batch: int = 8, seq: int = 128, steps: int = 50,
     cluster = network.paper_testbed(testbed, seed=0)
     sch = schedule_opfence(graph, prof, cluster)
     plan = {"none": lambda: plan_none(graph, sch.placement),
-            "uniform": lambda: plan_uniform(graph, sch.placement, ratio),
+            "uniform": lambda: plan_uniform(graph, sch.placement, ratio,
+                                            error_feedback=error_feedback),
             "adatopk": lambda: plan_adatopk(graph, prof, cluster,
-                                            sch.placement, ratio)
+                                            sch.placement, ratio,
+                                            error_feedback=error_feedback)
             }[compress]()
     sim = simulate_iteration(graph, prof, sch, cluster, plan, n_micro=2)
     log.event("fusion_plan", testbed=testbed,

@@ -100,11 +100,13 @@ def test_ef_compress_matches_jax(policy):
                                    np.asarray(js.residual), rtol=0, atol=1e-6)
 
 
-def test_ef_codec_on_cuda_is_not_ported():
+def test_ef_codec_cuda_mode_on_a_cpu_tensor_raises():
     from repro_torch.kernels import ops
     x = torch.ones(64)
-    with pytest.raises(NotImplementedError, match="ef_encode_topk"):
+    with pytest.raises(ValueError, match="mode 'cuda'"):
         ops.codec_ef_topk(x, torch.zeros(64), 4, mode="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        T.ef_compress(x, T.ErrorFeedbackState.init(x), 4, "force")
 
 
 def test_dense_payload_bytes():

@@ -1,5 +1,5 @@
-"""The CUDA wire-codec kernels against their plain PyTorch versions, bit
-for bit, on the card.  Every test here is marked ``cuda`` and skips without
+"""The CUDA Top-K kernels (wire codec, error-feedback encode, dense masks)
+against their plain PyTorch versions, bit for bit, on the card.  Every test here is marked ``cuda`` and skips without
 a CUDA device; the module imports no JAX, so it runs on a machine with the
 card and no JAX:
 
@@ -46,6 +46,15 @@ def _bits(t):
     return t.cpu().to(torch.float32).view(torch.int32)
 
 
+def _assert_bits(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.is_floating_point():
+            assert torch.equal(_bits(a), _bits(b))
+        else:
+            assert torch.equal(a.cpu(), b.cpu())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,kpb,regime", CASES)
@@ -63,6 +72,40 @@ def test_cuda_kernels_bit_exact(cuda_device, shape, kpb, regime, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,kpb,regime", CASES)
+def test_cuda_ef_and_dense_kernels_bit_exact(cuda_device, shape, kpb, regime,
+                                             dtype):
+    """The residual is drawn like x; inputs are finite (the dense EF
+    kernel's ``c - sent`` and the EF encode's ``kept ? 0 : c`` agree only
+    there)."""
+    x = _input(shape, dtype, regime, seed=kpb)
+    r = _input(shape, dtype, regime, seed=kpb + 1000)
+    xd, rd = x.to(cuda_device), r.to(cuda_device)
+    for block in (512, tk.DEFAULT_BLOCK):
+        got = [tk.ef_encode_topk(xd, rd, kpb, block=block),
+               (tk.blockwise_topk_mask(xd, kpb, block=block),),
+               tk.ef_topk(xd, rd, kpb, block=block)]
+        torch.cuda.synchronize()
+        want = [ref.ef_encode_topk_ref(x, r, kpb, block=block),
+                (ref.blockwise_topk_mask_ref(x, kpb, block=block),),
+                ref.ef_topk_ref(x, r, kpb, block=block)]
+        for g, w in zip(got, want):
+            _assert_bits(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_residual_must_match_x(cuda_device):
+    x = torch.randn(4096, device=cuda_device)
+    for bad in (torch.zeros(4096, device=cuda_device, dtype=torch.bfloat16),
+                torch.zeros(4095, device=cuda_device), torch.zeros(4096)):
+        with pytest.raises(ValueError, match="residual"):
+            tk.ef_encode_topk(x, bad, 41)
+        with pytest.raises(ValueError, match="residual"):
+            tk.ef_topk(x, bad, 41)
+
+
+@pytest.mark.cuda
 def test_cuda_policy_launches_and_counts(cuda_device):
     tk.reset_launch_counts()
     x = torch.randn(8, 128, 1600, device=cuda_device)
@@ -70,5 +113,11 @@ def test_cuda_policy_launches_and_counts(cuda_device):
         "auto", x.device))
     assert tk.encode_topk.launches == 1 and tk.decode_topk.launches == 1
     assert int((y != 0).sum()) == 400 * 41
-    with pytest.raises(NotImplementedError, match="ef_encode_topk"):
-        ops.codec_ef_topk(x, torch.zeros_like(x), 100, mode="cuda")
+    sent, newr = ops.codec_ef_topk(x, torch.zeros_like(x), x.numel() // 100,
+                                   mode="cuda")
+    assert tk.ef_encode_topk.launches == 1 and tk.decode_topk.launches == 2
+    assert tk.encode_topk.launches == 1
+    assert torch.equal(sent, y) and torch.equal(newr, x - y)
+    ops.topk_mask(x, x.numel() // 100)
+    ops.ef_topk(x, newr, 41)
+    assert tk.blockwise_topk_mask.launches == 1 and tk.ef_topk.launches == 1

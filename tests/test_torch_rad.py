@@ -176,3 +176,37 @@ def test_launcher_fusion_runs_on_cpu():
     assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
     with pytest.raises(SystemExit):
         t_train.main(["--mode", "gspmd", "--device", "cpu"])
+
+
+def test_train_fusion_error_feedback_codec_calls_and_residuals(monkeypatch):
+    """The EF-SGD step runs one codec round trip per compressed message in
+    each direction: the forward activation through ``boundary_compress``
+    (whose input is detached, so its own backward never runs a codec) and
+    the gradient through ``topk_mask(g + r)``.  After the run every
+    compressed gradient edge holds a non-zero residual."""
+    from repro_torch.configs import resolve
+    from repro_torch.kernels import topk_compress as ttk
+    calls = {"encode_topk": 0, "decode_topk": 0}
+    for name in calls:
+        real = getattr(ttk, name)
+
+        def counting(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(ttk, name, counting)
+    steps = 2
+    run = t_train.train_fusion(resolve("gpt2-xl").smoke, batch=2, seq=16,
+                               steps=steps, compress="uniform", ratio=10.0,
+                               device="cpu", data_order=1,
+                               error_feedback=True, log_every=100)
+    prog, plan = run.runtime.prog, run.plan
+    assert plan.error_feedback and all(math.isfinite(x) for x in run.losses)
+    msgs = sum(
+        1 for sd in prog.subdags for a in sd.required_acti
+        if max([plan.ratio(a, c) for c in sd.node_names
+                if a in prog.graph.nodes[c].args] or [1.0]) > 1.0)
+    assert msgs > 0
+    assert calls == {"encode_topk": msgs * 2 * steps,
+                     "decode_topk": msgs * 2 * steps}
+    ef = run.runtime.ef_state
+    assert sum(int(bool((r != 0).any())) for r in ef.values()) == msgs
