@@ -7,12 +7,16 @@
 2. builds the five Top-K kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc (into ``build/``);
 3. holds each kernel bit-exact against its plain PyTorch version on the
-   card: fp32/bf16/fp16, ragged sizes, all zeros, heavy ties, k = 1 and
-   k = 4096, and the training path's boundary shapes (the error-feedback
-   kernels with a residual drawn like x);
-4. times each kernel with CUDA events and the profiler at the path's
-   boundary shapes, beside its plain version, its memory bound and
-   ``torch.topk`` (selection only);
+   card: fp32/bf16/fp16, ragged sizes (tails that are not a multiple of
+   the 16-byte vector), inputs at a storage offset (unaligned), all zeros,
+   all equal, heavy ties, blocks of 1 + i ulp (one large candidate list),
+   k = 1, B - 1 and B, the training path's boundary shapes (the
+   error-feedback kernels with a residual drawn like x), and the decode of
+   bitmaps with more than k bits set;
+4. times each kernel with CUDA events, the profiler and the host clock
+   (``*_host_us``: enqueue time a call) at the path's boundary shapes,
+   beside its plain version, its memory bound and ``torch.topk``
+   (selection only);
 5. drives the port's training path — gpt2-xl at full width and depth,
    batch 8, seq 128, paper testbed 1, ``DecentralizedRuntime(use_kernel=
    "auto")`` — for a few AdamW steps under the uniform (ratio 100) and the
@@ -84,6 +88,22 @@ def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_us(fn, reps: int = 300, warmup: int = 10) -> float:
+    """Host time per call of ``fn`` in microseconds: ``perf_counter_ns``
+    around ``reps`` enqueued calls, without waiting for the card (the
+    synchronise after the loop is not timed)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps / 1e3
+
+
 def bits_equal(a, b) -> bool:
     import torch
     if a.shape != b.shape or a.dtype != b.dtype:
@@ -108,15 +128,38 @@ def check_kernels(dev):
              ((1000,), 5, 512, "zeros"), ((3000,), 9, 512, "ties"),
              ((9000,), 1, 4096, "ties"), ((9000,), 4096, 4096, "normal"),
              ((4097,), 4096, 4096, "zeros"), ((33, 1001), 17, 4096, "normal"),
-             ((BATCH, SEQ, 1600), 41, 4096, "normal"),
-             ((BATCH, SEQ, 50432), 41, 4096, "normal")]
+             ((4103,), 41, 4096, "normal"), ((5003,), 17, 4096, "offset"),
+             ((BATCH, SEQ, 1600), 41, 4096, "offset"),
+             ((8192,), 41, 4096, "ulp"), ((4100,), 2000, 4096, "ulp"),
+             ((1024,), 100, 512, "ulp")]
+    cases += [((4096,), k, block, regime) for regime in ("equal", "zeros")
+              for k, block in ((1, 4096), (4095, 4096), (4096, 4096),
+                               (1, 512), (511, 512))]
+    cases += [((BATCH, SEQ, 1600), 41, 4096, "normal"),
+              ((BATCH, SEQ, 50432), 41, 4096, "normal")]
 
-    def draw(n, regime):
+    def draw(n, regime, dtype):
+        """A CPU tensor of n elements; "offset" is a view at storage offset
+        1 (moved to the card by ``place``)."""
         if regime == "zeros":
             return torch.zeros(n)
         if regime == "ties":
             return levels[torch.randint(0, 5, (n,), generator=gen)]
-        return torch.randn(n, generator=gen)
+        sign = torch.randint(0, 2, (n,), generator=gen) * 2.0 - 1.0
+        if regime == "equal":
+            return 0.75 * sign
+        if regime == "ulp":
+            # 1 + i ulp: the magnitudes share their top 11-20 bits, so the
+            # whole block is one candidate list
+            span = {torch.float32: 4096, torch.bfloat16: 16,
+                    torch.float16: 128}[dtype]
+            i = torch.randperm(n, generator=gen) % span
+            return sign * (1 + i * torch.finfo(dtype).eps)
+        return torch.randn(n + (regime == "offset"), generator=gen)
+
+    def place(t, shape, regime, dtype):
+        t = t.to(dtype).to(dev)
+        return (t[1:] if regime == "offset" else t).reshape(shape)
 
     def diff(a, b):
         return float((a.float() - b.float()).abs().max())
@@ -126,8 +169,8 @@ def check_kernels(dev):
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for shape, k, block, regime in cases:
             n = math.prod(shape)
-            x = draw(n, regime).reshape(shape).to(dtype).to(dev)
-            r = draw(n, regime).reshape(shape).to(dtype).to(dev)
+            x = place(draw(n, regime, dtype), shape, regime, dtype)
+            r = place(draw(n, regime, dtype), shape, regime, dtype)
             v, m = tk.encode_topk(x, k, block)
             d = tk.decode_topk(v, m, shape)
             ev, em, er = tk.ef_encode_topk(x, r, k, block)
@@ -152,9 +195,24 @@ def check_kernels(dev):
                 err[name] = max([err[name]] + [diff(a, b) for a, b in outs
                                                 if a.is_floating_point()])
             n_cases += 1
-    print(f"kernel checks: {n_cases} cases x {len(err)} kernels bit-exact "
-          f"against the plain versions (fp32/bf16/fp16, ragged, zeros, ties, "
-          f"k=1, k=4096, boundary shapes)")
+        # decode of bitmaps with more than k bits set: slots past k - 1
+        # read the last value, as the plain version clamps them
+        for n, k, block in ((5000, 40, 512), (9000, 41, 4096)):
+            nb = -(-n // block)
+            v = torch.randn(nb, k, generator=gen).to(dtype).to(dev)
+            m = torch.randint(-2 ** 31, 2 ** 31, (nb, block // 32),
+                              generator=gen, dtype=torch.int32).to(dev)
+            d = tk.decode_topk(v, m, (n,))
+            torch.cuda.synchronize()
+            if not bits_equal(d, ref.decode_topk_ref(v, m, (n,))):
+                raise AssertionError(f"decode_topk != plain version on a "
+                                     f"bitmap with more than k bits set: "
+                                     f"{dtype} n={n} k={k} block={block}")
+            n_cases += 1
+    print(f"kernel checks: {n_cases} cases bit-exact against the plain "
+          f"versions (fp32/bf16/fp16; ragged, storage offset, zeros, ties, "
+          f"all-equal, 1 + i ulp, k = 1, B - 1 and B, boundary shapes; "
+          f"decode of over-full bitmaps)")
     return err
 
 
@@ -200,6 +258,7 @@ def measure_kernels(dev):
         for short, (kernel, plain) in calls.items():
             nbytes, ops_ = work[short]
             row[f"{short}_ms"] = time_ms(kernel)
+            row[f"{short}_host_us"] = host_us(kernel)
             row[f"{short}_plain_ms"] = time_ms(plain, reps=10)
             row[f"{short}_bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                                  ops_ / FP32_OPS_PER_S)
@@ -524,6 +583,7 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": err[name], "ms": main_shape[f"{short}_ms"],
             "device_us": main_shape[f"{short}_device_us"],
+            "host_us": main_shape[f"{short}_host_us"],
             "plain_ms": main_shape[f"{short}_plain_ms"],
             "bound_ms": main_shape[f"{short}_bound_ms"], "bound_by": "bytes",
             "library_ms": None,

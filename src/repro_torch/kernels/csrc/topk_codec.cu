@@ -2,8 +2,9 @@
 // its error-feedback variant, and the dense masks.
 //
 // Five kernels with a plain C interface, loaded from Python with ctypes
-// (repro_torch/kernels/topk_compress.py).  Each replaces one Pallas kernel
-// of src/repro/kernels/topk_compress.py:
+// (repro_torch/kernels/topk_compress.py, whose SIGNATURES table mirrors the
+// extern "C" prototypes at the end of this file).  Each replaces one Pallas
+// kernel of src/repro/kernels/topk_compress.py:
 //
 //   topk_encode      encode_topk, _encode_block_kernel (pallas_call :228)
 //   topk_ef_encode   ef_encode_topk, _ef_encode_block_kernel (:255)
@@ -33,23 +34,59 @@
 // ef_encode writes new_r = kept ? +0 : c; ef_dense writes new_r = c - sent
 // in the storage dtype.  The two agree on every finite input.
 //
-// All five are bound by memory bytes: per element they read one value (two
-// with error feedback) and write one dense value per dense output, plus
-// 1/32 of a word and k/B values for the wire.  Their design keeps device
-// memory traffic at that minimum: one CTA owns one block, reads each input
-// from device memory once into shared memory (the decode reads only the
-// bitmap and the packed values), does every pass of the selection, the tie
-// cap and the compaction on chip, and writes each output once.  The
-// padding is made inside the kernel, so the wrappers copy nothing.  The
-// k-th largest magnitude is found exactly with a radix select over the bit
-// patterns (4 passes of 8 bits, a shared-memory histogram each), where the
-// TPU kernels ran a 31-step binary search.  One __ballot_sync over 32
-// consecutive elements is one bitmap word; __popc of the words, scanned
-// over the block's words by one warp, gives each kept value its slot.
+// What bounds them on an H100: memory bytes.  Per element the encode reads
+// one value (two with error feedback) and the decode writes one, plus the
+// wire (1/32 of a word and k/B values); the dense kernels read one or two
+// and write one or two.  At the training path's boundary shape (400 blocks
+// of 4096 fp32, one wave on 132 SMs) that is about 2 us of HBM time, and
+// the rest of a call is each block's chain on chip: with three CTAs of 16
+// warps an SM, that chain is bound by the instructions the SM issues and
+// the barriers between its phases.  So the design keeps the bytes at that
+// minimum and cuts the instructions and barriers of the chain:
+//
+// - One CTA of 512 threads owns one block.  The block is staged once, in
+//   shared memory, with 16-byte vector loads (4 fp32 or 8 bf16/fp16 a
+//   thread); a ragged last block, or an input whose address is not 16-byte
+//   aligned (a storage-offset view such as x[1:]), is staged one element at
+//   a time instead.  Then each thread moves its share into registers in
+//   the ballot layout (warp w owns 8 consecutive words, lane l element l of
+//   each) and every later phase works from those registers: magnitudes are
+//   recomputed from the values, never stored beside them.
+// - Selection (select_threshold) is an exact radix select over the 31
+//   significant bits of the magnitudes.  The first digit is their top 12
+//   bits (sign excluded), histogrammed by the whole CTA into 4096 bins with
+//   one shared-memory add an element; a warp whose elements share one
+//   digit (all-zero, all-equal blocks) adds once.  A suffix scan over all
+//   16 warps finds the digit holding the k-th largest.  The elements with
+//   that digit are compacted into a candidate list, usually about 15 at
+//   k = 41 of 4096 normal values: one warp ranks a list of at most 64 by
+//   comparison, with no barrier.  A longer list (all-zero, all-equal and
+//   heavy-tie blocks, up to the whole block) goes to the whole CTA, which
+//   takes the candidates' common value when they all agree and otherwise
+//   runs two more radix digits (12 and 7 bits) over the list.  The usual
+//   path has six barriers, where four 8-bit passes over the block took
+//   sixteen.
+// - The wire: one __ballot_sync over 32 consecutive elements is one bitmap
+//   word.  The tie cap and each word's first value slot come from one
+//   block-wide exclusive scan of packed (above, tie) popcounts: each warp
+//   scans its own words, then adds the totals of the warps below (one
+//   barrier); __popc below a lane gives its slot within the word.  The
+//   values, the residual and the dense masks are written from registers,
+//   each warp instruction covering 32 consecutive elements.
+// - The decode stages a block's k values in shared memory and writes the
+//   dense block as 16-byte vectors (see decode_kernel).
 //
 // Magnitudes are computed from the raw storage bits: clearing the sign bit
 // of an f32 or bf16 value gives |x| exactly (bf16 is the top half of an
 // f32), and f16 widens exactly through __half2float.  -0.0 has magnitude 0.
+//
+// Resources (nvcc -Xptxas -v for sm_90a; the build log beside the library
+// holds the report): __launch_bounds__(512, 4) caps every kernel at 32
+// registers a thread, so that 4 CTAs of 16 warps fit on an SM (64 warps);
+// a selecting CTA uses 32.9 KB of shared memory (the staged block or the
+// candidate list, 16 KB; the histogram, 16 KB), the decode 16.4 KB (fp32).
+// At 400 blocks every block is resident at once, three to an SM (48 warps,
+// where the 256-thread CTAs before held 24).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -59,10 +96,18 @@
 namespace {
 
 constexpr int kMaxBlock = 4096;
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kMinCtas = 4;                  // CTAs an SM must hold
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxWords = kMaxBlock / 32;
+constexpr int kMaxPer = kMaxWords / kWarps;  // words a warp owns, at most
+constexpr int kDigit1 = 12;                 // first digit: bits 30..19
+constexpr int kBins1 = 1 << kDigit1;
+constexpr int kBinsPer = kBins1 / kThreads;  // first-pass bins a thread owns
+constexpr int kShortList = 64;               // ranked by comparison
 constexpr unsigned kFull = 0xffffffffu;
+static_assert(kBinsPer == 8, "each thread owns two int4 of bins");
+static_assert(kMaxPer <= 32, "a lane holds one of its warp's words");
 
 // KIND: 0 = float32, 1 = bfloat16, 2 = float16 (the wrapper's numbering).
 // mag: |x| as float32 bits; add / sub: the float result rounded to the
@@ -112,16 +157,36 @@ template <> struct Codec<2> {
   __device__ static Raw sub(Raw a, Raw b) { return round(__fsub_rn(f(a), f(b))); }
 };
 
-// Shared memory of one selecting CTA: the block's magnitude bits and
-// values, the radix histogram, and the per-word masks and value offsets.
+// 16 bytes of a block: 4 fp32 or 8 16-bit elements.
+template <typename Raw> union Vec {
+  static constexpr int kN = 16 / sizeof(Raw);
+  uint4 u;
+  Raw e[kN];
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// Shared memory of one selecting CTA.  The candidate list takes the staged
+// block's place: it is written only after every thread has moved its
+// share of the block into registers (before the first-pass barrier).
 template <typename Raw> struct Smem {
-  uint32_t bits[kMaxBlock];
-  Raw vals[kMaxBlock];
-  int hist[256];
-  uint32_t above[kMaxWords];
-  uint32_t tie[kMaxWords];
-  int off[kMaxWords];
-  int sel[2];
+  union {
+    __align__(16) Raw vals[kMaxBlock];        // the block (c with EF)
+    uint32_t cand[kMaxBlock];                 // then the candidates
+  } b;
+  __align__(16) int hist[kBins1];             // one radix digit's histogram
+  int part[kWarps];                           // per-warp partial sums
+  int pick[3];                                // digit, rank, count
+  int ncand;
+  uint32_t lo, hi;                            // the candidates' extremes
+  uint32_t thr;
+  int keep_ties;
+};
+
+struct Pick {
+  int digit, rank, count;
 };
 
 struct Select {
@@ -139,85 +204,284 @@ __device__ __forceinline__ int warp_scan(int v, int lane) {
   return v;
 }
 
-// Stage this CTA's block in shared memory (x, or c = round(x + r) when EF;
-// zero past the end of the tensor) and find the exact k-th largest
-// magnitude by a radix select from the top byte.  Shared by every
-// selecting kernel.
+// Inclusive suffix sum over the 32 lanes of a warp: this lane and above.
+__device__ __forceinline__ int warp_suffix(int v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int u = __shfl_down_sync(kFull, v, off);
+    if (lane + off < 32) v += u;
+  }
+  return v;
+}
+
+// Sum over the 32 lanes of a warp, in every lane.
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// Histogram add of digit d for the lanes where ok holds (the long list's
+// digits).  A warp whose adding lanes all hold one digit adds once;
+// otherwise each lane adds one, and only lanes that share a bin serialise.
+// (Aggregating every warp, by __match_any_sync or by one ballot per digit
+// bit, was measured slower on the H100 than the conflicts it removes.)
+// All 32 lanes call it.
+__device__ __forceinline__ void hist_add(int* hist, bool ok, uint32_t d) {
+  const unsigned adders = __ballot_sync(kFull, ok);
+  const int first = __ffs(adders) - 1;
+  const uint32_t d0 = __shfl_sync(kFull, d, first & 31);
+  if (__all_sync(kFull, !ok || d == d0)) {
+    if (static_cast<int>(threadIdx.x & 31) == first)
+      atomicAdd(&hist[d], __popc(adders));
+  } else if (ok) {
+    atomicAdd(&hist[d], 1);
+  }
+}
+
+// Stage this CTA's block in shared memory: x, or c = round(x + r) when EF;
+// zero past the end of the tensor.
 template <int KIND, bool EF>
-__device__ Select stage_and_select(const typename Codec<KIND>::Raw* x,
-                                   const typename Codec<KIND>::Raw* r,
-                                   Smem<typename Codec<KIND>::Raw>& sm,
-                                   long long n, int block, int k) {
+__device__ void stage(const typename Codec<KIND>::Raw* __restrict__ x,
+                      const typename Codec<KIND>::Raw* __restrict__ r,
+                      typename Codec<KIND>::Raw* vals, long long base,
+                      long long n, int block) {
   using Raw = typename Codec<KIND>::Raw;
+  using V = Vec<Raw>;
+  const Raw* xb = x + base;
+  const Raw* rb = EF ? r + base : nullptr;
+  if (base + block <= n && aligned16(xb) && (!EF || aligned16(rb))) {
+    for (int q = threadIdx.x; q < block / V::kN; q += kThreads) {
+      V a;
+      a.u = reinterpret_cast<const uint4*>(xb)[q];
+      if constexpr (EF) {
+        V b;
+        b.u = reinterpret_cast<const uint4*>(rb)[q];
+#pragma unroll
+        for (int e = 0; e < V::kN; ++e) a.e[e] = Codec<KIND>::add(a.e[e], b.e[e]);
+      }
+      reinterpret_cast<uint4*>(vals)[q] = a.u;
+    }
+  } else {
+    for (int i = threadIdx.x; i < block; i += kThreads) {
+      Raw v = Raw(0);
+      if (base + i < n) {
+        if constexpr (EF) v = Codec<KIND>::add(xb[i], rb[i]);
+        else v = xb[i];
+      }
+      vals[i] = v;
+    }
+  }
+}
+
+// A radix digit: the CTA's suffix scan over the histogram, each thread
+// owning kBinsPer consecutive bins (higher bins are larger magnitudes).
+// Returns the digit holding the rank-th largest element, the rank within
+// it, and its count.  All threads call it (it holds two barriers).
+template <typename Raw>
+__device__ __forceinline__ Pick pick_digit(Smem<Raw>& sm, int rank) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const long long base = static_cast<long long>(blockIdx.x) * block;
-
-  for (int i = tid; i < block; i += kThreads) {
-    const long long g = base + i;
-    Raw v = Raw(0);
-    if (g < n) {
-      if constexpr (EF) v = Codec<KIND>::add(x[g], r[g]);
-      else v = x[g];
+  const int4* h4 = reinterpret_cast<const int4*>(sm.hist) + tid * 2;
+  int4 lo = h4[0], hi = h4[1];
+  const int own = lo.x + lo.y + lo.z + lo.w + hi.x + hi.y + hi.z + hi.w;
+  int suffix = warp_suffix(own, lane);
+  if (lane == 0) sm.part[warp] = suffix;
+  __syncthreads();
+  suffix += warp_sum(lane > warp && lane < kWarps ? sm.part[lane] : 0);
+  int above = suffix - own;
+  if (above < rank && rank <= suffix) {    // exactly one thread
+    lo = h4[0];                            // its bins again, not kept live
+    hi = h4[1];
+    const int c[kBinsPer] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int j = kBinsPer - 1; j >= 0; --j) {
+      if (above + c[j] >= rank) {
+        sm.pick[0] = tid * kBinsPer + j;
+        sm.pick[1] = rank - above;
+        sm.pick[2] = c[j];
+        break;
+      }
+      above += c[j];
     }
-    sm.vals[i] = v;
-    sm.bits[i] = Codec<KIND>::mag(v);
   }
   __syncthreads();
+  return Pick{sm.pick[0], sm.pick[1], sm.pick[2]};
+}
 
-  // `rank` is the 1-based rank still sought among elements matching
-  // `prefix` on the bits decided so far.
-  uint32_t prefix = 0, pmask = 0;
-  int rank = k;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += kThreads) sm.hist[i] = 0;
+// The rank-th largest of a short candidate list (at most kShortList: the
+// usual case, about 15 candidates at k = 41 of 4096 normal values), and
+// the number of its ties to keep, by one warp and no barrier: lane l holds
+// candidates l and l + 32 and counts the candidates above and equal to
+// each, reading the list as broadcasts.  Writes thr and keep_ties.
+template <typename Raw>
+__device__ void rank_short_list(Smem<Raw>& sm, int rank, int count) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t c0 = sm.b.cand[lane];    // past `count`: never chosen
+  const uint32_t c1 = sm.b.cand[lane + 32];
+  int gt0 = 0, eq0 = 0, gt1 = 0, eq1 = 0;
+  for (int j = 0; j < count; ++j) {
+    const uint32_t v = sm.b.cand[j];
+    gt0 += v > c0;
+    eq0 += v == c0;
+    gt1 += v > c1;
+    eq1 += v == c1;
+  }
+  const bool at0 = lane < count && gt0 < rank && rank <= gt0 + eq0;
+  const bool at1 = lane + 32 < count && gt1 < rank && rank <= gt1 + eq1;
+  const unsigned b0 = __ballot_sync(kFull, at0);
+  const unsigned b1 = __ballot_sync(kFull, at1);
+  // every candidate equal to the threshold qualifies: take one
+  const int src = b0 ? __ffs(b0) - 1 : __ffs(b1) - 1;
+  const uint32_t thr = __shfl_sync(kFull, b0 ? c0 : c1, src);
+  const int gt = __shfl_sync(kFull, b0 ? gt0 : gt1, src);
+  if (lane == 0) {
+    sm.thr = thr;
+    sm.keep_ties = rank - gt;
+  }
+}
+
+// A long candidate list (all-zero, all-equal and heavy-tie blocks, where
+// the list can be the whole block), by the CTA.  When the candidates are
+// all one value (their extremes agree) that value is the threshold;
+// otherwise two more radix digits run over the list, bits 18..7 and then
+// 6..0, each a histogram of the candidates that match the prefix so far
+// and a pick.  All threads call it.
+template <typename Raw>
+__device__ __forceinline__ Select rank_long_list(Smem<Raw>& sm,
+                                                 uint32_t prefix, int rank,
+                                                 int count) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  uint32_t lo = kFull, hi = 0u;
+  for (int i = tid; i < count; i += kThreads) {
+    lo = min(lo, sm.b.cand[i]);
+    hi = max(hi, sm.b.cand[i]);
+  }
+  lo = __reduce_min_sync(kFull, lo);
+  hi = __reduce_max_sync(kFull, hi);
+  if (lane == 0) {
+    atomicMin(&sm.lo, lo);
+    atomicMax(&sm.hi, hi);
+  }
+  __syncthreads();
+  if (sm.lo == sm.hi) return Select{sm.lo, rank};
+  for (int shift = 7; shift >= 0; shift -= 7) {
+    const uint32_t width = shift ? 12u : 7u;
+    const uint32_t pmask = ~((1u << (shift + width)) - 1u);
+    reinterpret_cast<int4*>(sm.hist)[tid] = make_int4(0, 0, 0, 0);
+    reinterpret_cast<int4*>(sm.hist)[tid + kThreads] = make_int4(0, 0, 0, 0);
     __syncthreads();
-    for (int i = tid; i < block; i += kThreads) {
-      const uint32_t b = sm.bits[i];
-      if ((b & pmask) == prefix) atomicAdd(&sm.hist[(b >> shift) & 255u], 1);
+    // a warp's lanes walk the list together (hist_add is collective)
+    for (int i0 = (tid & ~31); i0 < count; i0 += kThreads) {
+      const int i = i0 + lane;
+      const uint32_t m = i < count ? sm.b.cand[i] : 0u;
+      hist_add(sm.hist, i < count && (m & pmask) == (prefix & pmask),
+               (m >> shift) & ((1u << width) - 1u));
     }
     __syncthreads();
-    if (warp == 0) {
-      // lane l owns bins [8l, 8l+8); higher bins are larger magnitudes
-      int cnt[8];
-      int own = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        cnt[j] = sm.hist[lane * 8 + j];
-        own += cnt[j];
-      }
-      int suffix = own;  // inclusive suffix sum: this lane and all above
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int u = __shfl_down_sync(kFull, suffix, off);
-        if (lane + off < 32) suffix += u;
-      }
-      int above = suffix - own;
-      if (above < rank && rank <= suffix) {
-        for (int j = 7; j >= 0; --j) {
-          if (above + cnt[j] >= rank) {
-            sm.sel[0] = lane * 8 + j;
-            sm.sel[1] = rank - above;
-            break;
-          }
-          above += cnt[j];
-        }
-      }
-    }
-    __syncthreads();
-    prefix |= static_cast<uint32_t>(sm.sel[0]) << shift;
-    pmask |= 255u << shift;
-    rank = sm.sel[1];
-    __syncthreads();
+    const Pick p = pick_digit(sm, rank);
+    prefix |= static_cast<uint32_t>(p.digit) << shift;
+    rank = p.rank;
   }
   return Select{prefix, rank};
 }
 
-// Wire encode of x (EF false) or of c = round(x + r) (EF true, which also
-// writes new_r).
+// Stage this CTA's block, hand each thread its share of it in v, and find
+// the block's exact k-th largest magnitude (see the note at the top).
+// Warp w owns words [w0, w0 + per) of the block; v[j] is element
+// (w0 + j) * 32 + lane, zero past the block's words.  Shared by every
+// selecting kernel; all threads call it.
 template <int KIND, bool EF>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ Select select_threshold(
+    const typename Codec<KIND>::Raw* x, const typename Codec<KIND>::Raw* r,
+    Smem<typename Codec<KIND>::Raw>& sm, long long n, int block, int k,
+    typename Codec<KIND>::Raw (&v)[kMaxPer]) {
+  using Raw = typename Codec<KIND>::Raw;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int words = block >> 5;
+  const int per = (words + kWarps - 1) / kWarps;
+  const int w0 = warp * per;
+  const int own = max(min(per, words - w0), 0);
+  constexpr int kShift = 31 - kDigit1;
+
+  reinterpret_cast<int4*>(sm.hist)[tid] = make_int4(0, 0, 0, 0);
+  reinterpret_cast<int4*>(sm.hist)[tid + kThreads] = make_int4(0, 0, 0, 0);
+  if (tid == 0) {
+    sm.ncand = 0;
+    sm.lo = kFull;
+    sm.hi = 0u;
+  }
+  stage<KIND, EF>(x, r, sm.b.vals, static_cast<long long>(blockIdx.x) * block,
+                  n, block);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kMaxPer; ++j)
+    v[j] = j < own ? sm.b.vals[(w0 + j) * 32 + lane] : Raw(0);
+
+  // First digit.  A warp whose elements all share one digit adds them
+  // once (all-zero and all-equal blocks); otherwise each element adds one,
+  // and only equal digits in one instruction serialise.
+  const uint32_t d0 = __shfl_sync(kFull, Codec<KIND>::mag(v[0]) >> kShift, 0);
+  bool same = true;
+#pragma unroll
+  for (int j = 0; j < kMaxPer; ++j)
+    same &= j >= own || (Codec<KIND>::mag(v[j]) >> kShift) == d0;
+  if (__all_sync(kFull, same)) {
+    if (lane == 0 && own) atomicAdd(&sm.hist[d0], own * 32);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kMaxPer; ++j)
+      if (j < own) atomicAdd(&sm.hist[Codec<KIND>::mag(v[j]) >> kShift], 1);
+  }
+  __syncthreads();
+  const Pick p = pick_digit(sm, k);
+  const uint32_t digit = static_cast<uint32_t>(p.digit);
+
+  // candidates: the magnitudes with that first digit, in any order
+#pragma unroll
+  for (int j = 0; j < kMaxPer; ++j) {
+    const uint32_t m = Codec<KIND>::mag(v[j]);
+    const bool hit = j < own && (m >> kShift) == digit;
+    const unsigned b = __ballot_sync(kFull, hit);
+    if (b) {
+      int at = 0;
+      if (lane == 0) at = atomicAdd(&sm.ncand, __popc(b));
+      at = __shfl_sync(kFull, at, 0);
+      if (hit) sm.b.cand[at + __popc(b & ((1u << lane) - 1u))] = m;
+    }
+  }
+  __syncthreads();
+  if (p.count > kShortList) {
+    const Select sel = rank_long_list(sm, digit << kShift, p.rank, p.count);
+    // v again, from device memory: not kept in registers across the long
+    // path, which would spill them on the usual one
+    const Raw* xb = x + static_cast<long long>(blockIdx.x) * block;
+    const Raw* rb = EF ? r + static_cast<long long>(blockIdx.x) * block : nullptr;
+    const long long left = n - static_cast<long long>(blockIdx.x) * block;
+#pragma unroll
+    for (int j = 0; j < kMaxPer; ++j) {
+      const int i = (w0 + j) * 32 + lane;
+      v[j] = Raw(0);
+      if (j < own && i < left) {
+        if constexpr (EF) v[j] = Codec<KIND>::add(xb[i], rb[i]);
+        else v[j] = xb[i];
+      }
+    }
+    return sel;
+  }
+  if (warp == 0) rank_short_list(sm, p.rank, p.count);
+  __syncthreads();
+  return Select{sm.thr, sm.keep_ties};
+}
+
+// Wire encode of x (EF false) or of c = round(x + r) (EF true, which also
+// writes new_r).  Replaces _encode_block_kernel / _ef_encode_block_kernel.
+template <int KIND, bool EF>
+__global__ void __launch_bounds__(kThreads, kMinCtas)
 encode_kernel(const typename Codec<KIND>::Raw* __restrict__ x,
               const typename Codec<KIND>::Raw* __restrict__ r,
               typename Codec<KIND>::Raw* __restrict__ values,
@@ -227,87 +491,82 @@ encode_kernel(const typename Codec<KIND>::Raw* __restrict__ x,
   using Raw = typename Codec<KIND>::Raw;
   __shared__ Smem<Raw> sm;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int words = block >> 5;
-  const Select sel = stage_and_select<KIND, EF>(x, r, sm, n, block, k);
+  const int per = (words + kWarps - 1) / kWarps;
+  const int w0 = warp * per;
+  const int own = max(min(per, words - w0), 0);
+  Raw v[kMaxPer];
+  const Select sel = select_threshold<KIND, EF>(x, r, sm, n, block, k, v);
 
-  // One ballot per 32 consecutive elements: the words of "above" and
-  // "tie" masks, LSB-first.
-  for (int w = warp; w < words; w += kWarps) {
-    const uint32_t b = sm.bits[w * 32 + lane];
-    const uint32_t a = __ballot_sync(kFull, b > sel.thr);
-    const uint32_t t = __ballot_sync(kFull, b == sel.thr);
-    if (lane == 0) {
-      sm.above[w] = a;
-      sm.tie[w] = t;
+  // One ballot per 32 consecutive elements: the words of the "above" and
+  // "tie" masks, LSB-first.  Lane j keeps word w0 + j.  (The ballots and
+  // shuffles here and below stay out of branches the compiler cannot prove
+  // uniform: inside one it wraps each in a collective sequence.)
+  uint32_t a = 0u, t = 0u;
+#pragma unroll
+  for (int j = 0; j < kMaxPer; ++j) {
+    const uint32_t m = Codec<KIND>::mag(v[j]);
+    const uint32_t aj = __ballot_sync(kFull, j < own && m > sel.thr);
+    const uint32_t tj = __ballot_sync(kFull, j < own && m == sel.thr);
+    if (lane == j) {
+      a = aj;
+      t = tj;
     }
   }
-  __syncthreads();
 
-  // One warp walks the words in order: cap the ties, emit each bitmap
-  // word, and scan the kept counts into each word's first value slot.
-  if (warp == 0) {
-    int tie_carry = 0, keep_carry = 0;
-    for (int w0 = 0; w0 < words; w0 += 32) {
-      const int w = w0 + lane;
-      const uint32_t a = w < words ? sm.above[w] : 0u;
-      const uint32_t t = w < words ? sm.tie[w] : 0u;
-      const int nt = __popc(t);
-      const int tie_incl = warp_scan(nt, lane);
-      const int ties_before = tie_carry + tie_incl - nt;
-      const int take = min(max(sel.keep_ties - ties_before, 0), nt);
-      uint32_t kept_ties = 0u, rest = t;
-      if (take == nt) {
-        kept_ties = t;
-      } else {
-        for (int j = 0; j < take; ++j) {  // lowest `take` set bits
-          const uint32_t low = rest & (0u - rest);
-          kept_ties |= low;
-          rest ^= low;
-        }
-      }
-      const uint32_t keep = a | kept_ties;
-      const int nk = __popc(keep);
-      const int keep_incl = warp_scan(nk, lane);
-      if (w < words) {
-        sm.above[w] = keep;
-        sm.off[w] = keep_carry + keep_incl - nk;
-        bitmap[static_cast<long long>(blockIdx.x) * words + w] = keep;
-      }
-      tie_carry += __shfl_sync(kFull, tie_incl, 31);
-      keep_carry += __shfl_sync(kFull, keep_incl, 31);
+  // Block-wide exclusive scan of the packed (above << 16 | tie) counts
+  // over the words: each warp scans its own, then adds the totals of the
+  // warps below.  Ties are kept in index order up to keep_ties, so the
+  // kept values before word w number aboves + min(ties, keep_ties).  Both
+  // counts are at most 4096.
+  const int nt = __popc(t);
+  const int packed = (__popc(a) << 16) | nt;
+  const int incl = warp_scan(packed, lane);
+  if (lane == 31) sm.part[warp] = incl;
+  __syncthreads();
+  const int before =
+      incl - packed + warp_sum(lane < warp ? sm.part[lane] : 0);
+  const int ties_before = before & 0xffff;
+  const int take = min(max(sel.keep_ties - ties_before, 0), nt);
+  uint32_t kept_ties = t;
+  if (take < nt) {                 // lowest `take` set bits
+    kept_ties = 0u;
+    uint32_t rest = t;
+    for (int j = 0; j < take; ++j) {
+      const uint32_t low = rest & (0u - rest);
+      kept_ties |= low;
+      rest ^= low;
     }
   }
-  __syncthreads();
+  const uint32_t keep = a | kept_ties;
+  const int off = (before >> 16) + min(ties_before, sel.keep_ties);
+  if (lane < own)
+    bitmap[static_cast<long long>(blockIdx.x) * words + w0 + lane] = keep;
 
-  // Compaction: each kept value goes to its slot, in index order.
+  // Compaction: each kept value goes to its slot, in index order; with
+  // EF, what was not sent is the new residual.
   Raw* out = values + static_cast<long long>(blockIdx.x) * k;
-  for (int w = warp; w < words; w += kWarps) {
-    const uint32_t keep = sm.above[w];
-    if ((keep >> lane) & 1u) {
-      const int slot = sm.off[w] + __popc(keep & ((1u << lane) - 1u));
-      out[slot] = sm.vals[w * 32 + lane];
-    }
-  }
-
-  if constexpr (EF) {
-    // new residual: what was not sent, from the keep words in sm.above
-    const long long base = static_cast<long long>(blockIdx.x) * block;
-    for (int i = tid; i < block; i += kThreads) {
-      const long long g = base + i;
-      if (g >= n) break;
-      const bool kept = (sm.above[i >> 5] >> (i & 31)) & 1u;
-      new_r[g] = kept ? Raw(0) : sm.vals[i];
+  const long long base = static_cast<long long>(blockIdx.x) * block;
+#pragma unroll
+  for (int j = 0; j < kMaxPer; ++j) {
+    const uint32_t kw = __shfl_sync(kFull, keep, j);
+    const int ow = __shfl_sync(kFull, off, j);
+    const bool kept = (kw >> lane) & 1u;
+    if (j < own && kept) out[ow + __popc(kw & ((1u << lane) - 1u))] = v[j];
+    if constexpr (EF) {
+      const long long g = base + (w0 + j) * 32 + lane;
+      if (j < own && g < n) new_r[g] = kept ? Raw(0) : v[j];
     }
   }
 }
 
 // Dense mask of x (EF false: out = sent) or of c = round(x + r) (EF true:
-// out = sent, new_r = c - sent).  Keeps every threshold tie.
+// out = sent, new_r = c - sent).  Keeps every threshold tie.  Replaces
+// _topk_block_kernel / _ef_topk_block_kernel.
 template <int KIND, bool EF>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinCtas)
 dense_kernel(const typename Codec<KIND>::Raw* __restrict__ x,
              const typename Codec<KIND>::Raw* __restrict__ r,
              typename Codec<KIND>::Raw* __restrict__ out,
@@ -316,70 +575,117 @@ dense_kernel(const typename Codec<KIND>::Raw* __restrict__ x,
   using Raw = typename Codec<KIND>::Raw;
   __shared__ Smem<Raw> sm;
 
-  const Select sel = stage_and_select<KIND, EF>(x, r, sm, n, block, k);
+  const int lane = threadIdx.x & 31;
+  const int words = block >> 5;
+  const int per = (words + kWarps - 1) / kWarps;
+  const int w0 = (threadIdx.x >> 5) * per;
+  const int own = max(min(per, words - w0), 0);
+  Raw v[kMaxPer];
+  const Select sel = select_threshold<KIND, EF>(x, r, sm, n, block, k, v);
   const long long base = static_cast<long long>(blockIdx.x) * block;
-  for (int i = threadIdx.x; i < block; i += kThreads) {
-    const long long g = base + i;
-    if (g >= n) break;
-    const Raw v = sm.vals[i];
-    const Raw sent = sm.bits[i] >= sel.thr ? v : Raw(0);
-    out[g] = sent;
-    if constexpr (EF) new_r[g] = Codec<KIND>::sub(v, sent);
+#pragma unroll
+  for (int j = 0; j < kMaxPer; ++j) {
+    const long long g = base + (w0 + j) * 32 + lane;
+    if (j < own && g < n) {
+      const Raw sent = Codec<KIND>::mag(v[j]) >= sel.thr ? v[j] : Raw(0);
+      out[g] = sent;
+      if constexpr (EF) new_r[g] = Codec<KIND>::sub(v[j], sent);
+    }
   }
 }
 
+// Wire -> dense.  Replaces _decode_block_kernel.  Bound by its dense
+// write.  The k values are staged in shared memory with coalesced loads (a
+// row of k values is not 16-byte aligned in general).  Warp w owns words
+// [w0, w0 + per), its lane j word w0 + j: the slots before w0 are the
+// popcounts of the words below, summed by the warp itself, so the block
+// needs one barrier (for the staged values) and no scan in shared memory.
+// Each warp writes its words' elements as 16-byte vectors, each vector's
+// bits taken from its word, where the block is full and `out` aligned;
+// element by element otherwise.
 template <typename Raw>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinCtas)
 decode_kernel(const Raw* __restrict__ values,
               const uint32_t* __restrict__ bitmap, Raw* __restrict__ out,
               long long n, int block, int k) {
-  __shared__ uint32_t s_words[kMaxWords];
-  __shared__ int s_off[kMaxWords];
+  using V = Vec<Raw>;
+  __shared__ Raw s_vals[kMaxBlock];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int words = block >> 5;
-
-  for (int w = tid; w < words; w += kThreads)
-    s_words[w] = bitmap[static_cast<long long>(blockIdx.x) * words + w];
+  const int per = (words + kWarps - 1) / kWarps;
+  const int w0 = warp * per;
+  const int own = max(min(per, words - w0), 0);   // words this warp owns
+  const Raw* row = values + static_cast<long long>(blockIdx.x) * k;
+  const uint32_t* wrow = bitmap + static_cast<long long>(blockIdx.x) * words;
+  for (int i = tid; i < k; i += kThreads) s_vals[i] = row[i];
+  const uint32_t word = lane < own ? wrow[w0 + lane] : 0u;
+  int below = 0;
+  for (int w = lane; w < w0; w += 32) below += __popc(wrow[w]);
+  const int nw = __popc(word);
+  const int first = warp_sum(below) + warp_scan(nw, lane) - nw;
   __syncthreads();
 
-  // one warp: exclusive scan of the words' popcounts = first slot per word
-  if (warp == 0) {
-    int carry = 0;
-    for (int w0 = 0; w0 < words; w0 += 32) {
-      const int w = w0 + lane;
-      const int c = w < words ? __popc(s_words[w]) : 0;
-      const int incl = warp_scan(c, lane);
-      if (w < words) s_off[w] = carry + incl - c;
-      carry += __shfl_sync(kFull, incl, 31);
+  // element e of this warp's words: word e / 32, bit e % 32; slots past
+  // k - 1 are clamped as the reference clamps a bitmap with more than k
+  // bits set
+  auto value = [=](int e, uint32_t wd, int slot0) {
+    const int b = e & 31;
+    if (!((wd >> b) & 1u)) return Raw(0);
+    return s_vals[min(slot0 + __popc(wd & ((1u << b) - 1u)), k - 1)];
+  };
+  const long long base = static_cast<long long>(blockIdx.x) * block + w0 * 32;
+  Raw* o = out + base;
+  if (static_cast<long long>(blockIdx.x) * block + block <= n && aligned16(o)) {
+    const int nvec = own * 32 / V::kN;
+#pragma unroll
+    for (int q0 = 0; q0 < kMaxPer * 32 / V::kN; q0 += 32) {
+      const int q = q0 + lane;
+      const int j = min(q * V::kN / 32, kMaxPer - 1);
+      const uint32_t wd = __shfl_sync(kFull, word, j);
+      const int slot0 = __shfl_sync(kFull, first, j);
+      if (q < nvec) {
+        V v;
+#pragma unroll
+        for (int e = 0; e < V::kN; ++e) v.e[e] = value(q * V::kN + e, wd, slot0);
+        reinterpret_cast<uint4*>(o)[q] = v.u;
+      }
     }
-  }
-  __syncthreads();
-
-  // dense block, trimmed to the tensor's n elements
-  const Raw* vals = values + static_cast<long long>(blockIdx.x) * k;
-  const long long base = static_cast<long long>(blockIdx.x) * block;
-  for (int i = tid; i < block; i += kThreads) {
-    const long long g = base + i;
-    if (g >= n) break;
-    const int w = i >> 5, b = i & 31;
-    const uint32_t word = s_words[w];
-    Raw v = Raw(0);
-    if ((word >> b) & 1u) {
-      // clamp as the reference does for a bitmap with more than k bits set
-      const int slot = min(s_off[w] + __popc(word & ((1u << b) - 1u)), k - 1);
-      v = vals[slot];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kMaxPer; ++j) {
+      const uint32_t wd = __shfl_sync(kFull, word, j);
+      const int slot0 = __shfl_sync(kFull, first, j);
+      if (j < own && base + j * 32 + lane < n)
+        o[j * 32 + lane] = value(j * 32 + lane, wd, slot0);
     }
-    out[g] = v;
   }
 }
 
-bool bad_args(long long n, int nb, int block, int k, int kind) {
+bool bad_args(long long n, int nb, int block, int k, int kind, int device) {
   return n <= 0 || nb <= 0 || block <= 0 || block % 32 != 0 ||
          block > kMaxBlock || k < 1 || k > block || kind < 0 || kind > 2 ||
-         n > static_cast<long long>(nb) * block;
+         device < 0 || n > static_cast<long long>(nb) * block;
+}
+
+// Run `launch` with `device` current, as a device guard would: the current
+// device is set only when it differs, and restored afterwards.  Returns
+// cudaGetLastError() after the launch.
+template <typename F>
+int on_device(int device, F launch) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch();
+  err = cudaGetLastError();
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
 }
 
 // Launchers by dtype: one entry per KIND, cast from the C interface's
@@ -404,34 +710,44 @@ void launch_dense(const void* x, const void* r, void* out, void* new_r,
       static_cast<Raw*>(out), static_cast<Raw*>(new_r), n, block, k);
 }
 
+template <typename Raw>
+void launch_decode(const void* values, const void* bitmap, void* out,
+                   long long n, int nb, int block, int k, cudaStream_t s) {
+  decode_kernel<Raw><<<nb, kThreads, 0, s>>>(
+      static_cast<const Raw*>(values), static_cast<const uint32_t*>(bitmap),
+      static_cast<Raw*>(out), n, block, k);
+}
+
 template <bool EF>
 int encode_entry(const void* x, const void* r, void* values, void* bitmap,
                  void* new_r, long long n, int nb, int block, int k, int kind,
-                 void* stream) {
-  if (bad_args(n, nb, block, k, kind))
+                 int device, void* stream) {
+  if (bad_args(n, nb, block, k, kind, device))
     return static_cast<int>(cudaErrorInvalidValue);
   using Fn = void (*)(const void*, const void*, void*, void*, void*,
                       long long, int, int, int, cudaStream_t);
   const Fn fns[3] = {launch_encode<0, EF>, launch_encode<1, EF>,
                      launch_encode<2, EF>};
-  fns[kind](x, r, values, bitmap, new_r, n, nb, block, k,
-            static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    fns[kind](x, r, values, bitmap, new_r, n, nb, block, k,
+              static_cast<cudaStream_t>(stream));
+  });
 }
 
 template <bool EF>
 int dense_entry(const void* x, const void* r, void* out, void* new_r,
-                long long n, int nb, int block, int k, int kind,
+                long long n, int nb, int block, int k, int kind, int device,
                 void* stream) {
-  if (bad_args(n, nb, block, k, kind))
+  if (bad_args(n, nb, block, k, kind, device))
     return static_cast<int>(cudaErrorInvalidValue);
   using Fn = void (*)(const void*, const void*, void*, void*, long long, int,
                       int, int, cudaStream_t);
   const Fn fns[3] = {launch_dense<0, EF>, launch_dense<1, EF>,
                      launch_dense<2, EF>};
-  fns[kind](x, r, out, new_r, n, nb, block, k,
-            static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    fns[kind](x, r, out, new_r, n, nb, block, k,
+              static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // namespace
@@ -439,52 +755,50 @@ int dense_entry(const void* x, const void* r, void* out, void* new_r,
 extern "C" {
 
 // Every entry returns cudaGetLastError() after the launch (0 on success),
-// or cudaErrorInvalidValue for arguments the kernels do not take.
+// or cudaErrorInvalidValue for arguments the kernels do not take.  It
+// launches on `device` (made current for the launch only) and `stream`.
 // x, r, new_r, out, sent: n elements; values: (nb, k); bitmap: (nb,
 // block/32) uint32 words.
 
 int topk_encode(const void* x, void* values, void* bitmap, long long n,
-                int nb, int block, int k, int kind, void* stream) {
+                int nb, int block, int k, int kind, int device,
+                void* stream) {
   return encode_entry<false>(x, nullptr, values, bitmap, nullptr, n, nb,
-                             block, k, kind, stream);
+                             block, k, kind, device, stream);
 }
 
 int topk_ef_encode(const void* x, const void* r, void* values, void* bitmap,
                    void* new_r, long long n, int nb, int block, int k,
-                   int kind, void* stream) {
+                   int kind, int device, void* stream) {
   return encode_entry<true>(x, r, values, bitmap, new_r, n, nb, block, k,
-                            kind, stream);
+                            kind, device, stream);
 }
 
 int topk_mask_dense(const void* x, void* out, long long n, int nb, int block,
-                    int k, int kind, void* stream) {
+                    int k, int kind, int device, void* stream) {
   return dense_entry<false>(x, nullptr, out, nullptr, n, nb, block, k, kind,
-                            stream);
+                            device, stream);
 }
 
 int topk_ef_dense(const void* x, const void* r, void* sent, void* new_r,
-                  long long n, int nb, int block, int k, int kind,
+                  long long n, int nb, int block, int k, int kind, int device,
                   void* stream) {
-  return dense_entry<true>(x, r, sent, new_r, n, nb, block, k, kind, stream);
+  return dense_entry<true>(x, r, sent, new_r, n, nb, block, k, kind, device,
+                           stream);
 }
 
 int topk_decode(const void* values, const void* bitmap, void* out,
-                long long n, int nb, int block, int k, int kind,
+                long long n, int nb, int block, int k, int kind, int device,
                 void* stream) {
-  if (bad_args(n, nb, block, k, kind))
+  if (bad_args(n, nb, block, k, kind, device))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* words = static_cast<const uint32_t*>(bitmap);
-  if (kind == 0) {
-    decode_kernel<uint32_t><<<nb, kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(values), words,
-        static_cast<uint32_t*>(out), n, block, k);
-  } else {
-    decode_kernel<uint16_t><<<nb, kThreads, 0, s>>>(
-        static_cast<const uint16_t*>(values), words,
-        static_cast<uint16_t*>(out), n, block, k);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    if (kind == 0)
+      launch_decode<uint32_t>(values, bitmap, out, n, nb, block, k, s);
+    else
+      launch_decode<uint16_t>(values, bitmap, out, n, nb, block, k, s);
+  });
 }
 
 }  // extern "C"

@@ -75,7 +75,7 @@ def topk_mask(x: torch.Tensor, k: int,
 
 
 def _check_mode(x: torch.Tensor, mode: str) -> None:
-    if mode == "cuda" and x.device.type != "cuda":
+    if mode == "cuda" and not x.is_cuda:
         raise ValueError(f"mode 'cuda' on a tensor on {x.device}")
 
 
@@ -88,7 +88,7 @@ def codec_topk_mask(x: torch.Tensor, k: int, mode: str,
     _check_mode(x, mode)
     kpb = per_block_k(x.numel(), k, block)
     values, bitmap = tk.encode_topk(x, kpb, block)
-    return tk.decode_topk(values, bitmap, tuple(x.shape))
+    return tk.decode_topk(values, bitmap, x.shape)
 
 
 def codec_ef_topk(x: torch.Tensor, residual: torch.Tensor, k: int, mode: str,
@@ -99,4 +99,4 @@ def codec_ef_topk(x: torch.Tensor, residual: torch.Tensor, k: int, mode: str,
     _check_mode(x, mode)
     kpb = per_block_k(x.numel(), k, block)
     values, bitmap, newr = tk.ef_encode_topk(x, residual, kpb, block)
-    return tk.decode_topk(values, bitmap, tuple(x.shape)), newr
+    return tk.decode_topk(values, bitmap, x.shape), newr

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -78,19 +79,28 @@ def build_library() -> Path:
     return out
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_GEOMETRY = (_LL, _I, _I, _I, _I, _I, _P)   # n, nb, block, k, kind,
+#                                             device, stream
+#: argument types of the C entries of ``csrc/topk_codec.cu``, in the order
+#: of their prototypes: the tensors' pointers, then ``_GEOMETRY``.  Each
+#: returns a C int (0 or a CUDA error code).
+SIGNATURES = {"topk_encode": (_P, _P, _P) + _GEOMETRY,
+              "topk_ef_encode": (_P, _P, _P, _P, _P) + _GEOMETRY,
+              "topk_decode": (_P, _P, _P) + _GEOMETRY,
+              "topk_mask_dense": (_P, _P) + _GEOMETRY,
+              "topk_ef_dense": (_P, _P, _P, _P) + _GEOMETRY}
+
+
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the codec library."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        sigs = {"topk_encode": [p, p, p], "topk_decode": [p, p, p],
-                "topk_ef_encode": [p, p, p, p, p],
-                "topk_mask_dense": [p, p], "topk_ef_dense": [p, p, p, p]}
-        for name, ptrs in sigs.items():
+        for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
-            fn.argtypes = [*ptrs, ll, i, i, i, i, p]   # n, nb, block, k,
-            fn.restype = i                              # kind, stream
+            fn.argtypes = list(argtypes)
+            fn.restype = _I
         _lib = lib
     return _lib
 
@@ -104,51 +114,44 @@ def _check_block(block: int) -> None:
         raise ValueError(f"block must be a multiple of 32, got {block}")
 
 
-def _check_cuda(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cuda":
+def _on_card(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for any other
+    device."""
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
         raise ValueError(f"{what} must be a CPU or CUDA tensor, got "
                          f"{t.device}")
+    return False
+
+
+def _check_card_block(block: int) -> None:
+    if block > MAX_BLOCK:
+        raise ValueError(f"the CUDA kernels take blocks of at most "
+                         f"{MAX_BLOCK} elements, got {block}")
 
 
 def _check_residual(x: torch.Tensor, residual: torch.Tensor) -> None:
     """On the card the residual must be laid out as ``x`` is: the kernels
     read both with one dtype and one index."""
     if residual.dtype != x.dtype or residual.shape != x.shape \
-            or residual.device != x.device:
+            or residual.get_device() != x.get_device():
         raise ValueError(
             f"residual must have x's dtype, shape and device "
             f"({x.dtype} {tuple(x.shape)} on {x.device}), got "
             f"{residual.dtype} {tuple(residual.shape)} on {residual.device}")
 
 
-def _check_card_input(x: torch.Tensor, block: int) -> None:
-    _check_cuda(x, "x")
-    if block > MAX_BLOCK:
-        raise ValueError(f"the CUDA kernels take blocks of at most "
-                         f"{MAX_BLOCK} elements, got {block}")
-
-
-def _launch(fn, *args) -> None:
-    rc = fn(*args)
+def _launch(name: str, t: torch.Tensor, *args) -> None:
+    """Call the C entry ``name`` with ``args``, then the dtype kind, the
+    device index of ``t`` and the raw handle of that device's current
+    stream; raise on a non-zero return code."""
+    lib = _lib if _lib is not None else load_library()
+    index = t.get_device()
+    rc = getattr(lib, name)(*args, _KIND[t.dtype], index,
+                            torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
-
-
-def _run(fn, x: torch.Tensor, ptrs, n: int, nb: int, block: int,
-         k: int) -> None:
-    """Launch ``fn`` on the current stream of ``x``'s device."""
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(getattr(lib, fn), *ptrs, n, nb, block, k, _KIND[x.dtype],
-                stream)
-
-
-def _wire_outputs(x: torch.Tensor, nb: int, k: int, block: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return (torch.empty((nb, k), dtype=x.dtype, device=x.device),
-            torch.empty((nb, block // 32), dtype=torch.int32,
-                        device=x.device))
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
 
 
 def encode_topk(x: torch.Tensor, k_per_block: int,
@@ -158,18 +161,18 @@ def encode_topk(x: torch.Tensor, k_per_block: int,
     ref.check_codec_dtype(x)
     _check_block(block)
     k = _clamp_k(k_per_block, block)
-    if x.device.type == "cpu":
+    if not _on_card(x, "x"):
         return ref.encode_topk_ref(x, k, block)
-    _check_card_input(x, block)
-    flat = x.reshape(-1).contiguous()
-    n = flat.numel()
+    _check_card_block(block)
+    x = x.contiguous()
+    n = x.numel()
     nb = -(-n // block)
-    values, bitmap = _wire_outputs(x, nb, k, block)
-    if n == 0:
-        return values, bitmap
-    _run("topk_encode", x, (flat.data_ptr(), values.data_ptr(),
-                            bitmap.data_ptr()), n, nb, block, k)
-    encode_topk.launches += 1
+    values = x.new_empty((nb, k))
+    bitmap = x.new_empty((nb, block >> 5), dtype=torch.int32)
+    if n:
+        _launch("topk_encode", x, x.data_ptr(), values.data_ptr(),
+                bitmap.data_ptr(), n, nb, block, k)
+        encode_topk.launches += 1
     return values, bitmap
 
 
@@ -183,54 +186,49 @@ def ef_encode_topk(x: torch.Tensor, residual: torch.Tensor, k_per_block: int,
     ref.check_codec_dtype(x)
     _check_block(block)
     k = _clamp_k(k_per_block, block)
-    if x.device.type == "cpu":
+    if not _on_card(x, "x"):
         return ref.ef_encode_topk_ref(x, residual, k, block)
-    _check_card_input(x, block)
+    _check_card_block(block)
     _check_residual(x, residual)
-    flat, rflat = x.reshape(-1).contiguous(), residual.reshape(-1).contiguous()
-    n = flat.numel()
+    x, residual = x.contiguous(), residual.contiguous()
+    n = x.numel()
     nb = -(-n // block)
-    values, bitmap = _wire_outputs(x, nb, k, block)
-    new_r = torch.empty_like(flat)
-    if n == 0:
-        return values, bitmap, new_r.reshape(x.shape)
-    _run("topk_ef_encode", x, (flat.data_ptr(), rflat.data_ptr(),
-                               values.data_ptr(), bitmap.data_ptr(),
-                               new_r.data_ptr()), n, nb, block, k)
-    ef_encode_topk.launches += 1
-    return values, bitmap, new_r.reshape(x.shape)
+    values = x.new_empty((nb, k))
+    bitmap = x.new_empty((nb, block >> 5), dtype=torch.int32)
+    new_r = torch.empty_like(x)
+    if n:
+        _launch("topk_ef_encode", x, x.data_ptr(), residual.data_ptr(),
+                values.data_ptr(), bitmap.data_ptr(), new_r.data_ptr(), n,
+                nb, block, k)
+        ef_encode_topk.launches += 1
+    return values, bitmap, new_r
 
 
 def decode_topk(values: torch.Tensor, bitmap: torch.Tensor,
                 shape: Tuple[int, ...]) -> torch.Tensor:
     """Inverse of :func:`encode_topk`: dense tensor of ``shape``."""
-    shape = tuple(int(s) for s in shape)
     ref.check_codec_dtype(values)
-    if values.device.type == "cpu":
-        return ref.decode_topk_ref(values, bitmap, shape)
-    _check_cuda(values, "values")
+    if not _on_card(values, "values"):
+        return ref.decode_topk_ref(values, bitmap, tuple(shape))
     nb, k = values.shape
-    words = bitmap.shape[1]
+    bnb, words = bitmap.shape
     block = words * 32
-    n = 1
-    for s in shape:
-        n *= s
-    if bitmap.device != values.device or bitmap.dtype != torch.int32 \
-            or bitmap.shape[0] != nb:
+    n = math.prod(shape)
+    if bitmap.get_device() != values.get_device() \
+            or bitmap.dtype != torch.int32 or bnb != nb:
         raise ValueError(f"bitmap must be int32 ({nb}, B/32) on "
                          f"{values.device}, got {bitmap.dtype} "
                          f"{tuple(bitmap.shape)} on {bitmap.device}")
     if block > MAX_BLOCK or not 1 <= k <= block or n > nb * block:
         raise ValueError(f"bad codec geometry: nb={nb} k={k} block={block} "
-                         f"for shape {shape}")
-    out = torch.empty(n, dtype=values.dtype, device=values.device)
-    if n == 0:
-        return out.reshape(shape)
-    values, bitmap = values.contiguous(), bitmap.contiguous()
-    _run("topk_decode", values, (values.data_ptr(), bitmap.data_ptr(),
-                                 out.data_ptr()), n, nb, block, k)
-    decode_topk.launches += 1
-    return out.reshape(shape)
+                         f"for shape {tuple(shape)}")
+    out = values.new_empty(shape)
+    if n:
+        values, bitmap = values.contiguous(), bitmap.contiguous()
+        _launch("topk_decode", values, values.data_ptr(), bitmap.data_ptr(),
+                out.data_ptr(), n, nb, block, k)
+        decode_topk.launches += 1
+    return out
 
 
 def blockwise_topk_mask(x: torch.Tensor, k_per_block: int,
@@ -240,18 +238,17 @@ def blockwise_topk_mask(x: torch.Tensor, k_per_block: int,
     ref.check_codec_dtype(x)
     _check_block(block)
     k = _clamp_k(k_per_block, block)
-    if x.device.type == "cpu":
+    if not _on_card(x, "x"):
         return ref.blockwise_topk_mask_ref(x, k, block)
-    _check_card_input(x, block)
-    flat = x.reshape(-1).contiguous()
-    n = flat.numel()
-    out = torch.empty_like(flat)
-    if n == 0:
-        return out.reshape(x.shape)
-    _run("topk_mask_dense", x, (flat.data_ptr(), out.data_ptr()), n,
-         -(-n // block), block, k)
-    blockwise_topk_mask.launches += 1
-    return out.reshape(x.shape)
+    _check_card_block(block)
+    x = x.contiguous()
+    n = x.numel()
+    out = torch.empty_like(x)
+    if n:
+        _launch("topk_mask_dense", x, x.data_ptr(), out.data_ptr(), n,
+                -(-n // block), block, k)
+        blockwise_topk_mask.launches += 1
+    return out
 
 
 def ef_topk(x: torch.Tensor, residual: torch.Tensor, k_per_block: int,
@@ -262,20 +259,19 @@ def ef_topk(x: torch.Tensor, residual: torch.Tensor, k_per_block: int,
     ref.check_codec_dtype(x)
     _check_block(block)
     k = _clamp_k(k_per_block, block)
-    if x.device.type == "cpu":
+    if not _on_card(x, "x"):
         return ref.ef_topk_ref(x, residual, k, block)
-    _check_card_input(x, block)
+    _check_card_block(block)
     _check_residual(x, residual)
-    flat, rflat = x.reshape(-1).contiguous(), residual.reshape(-1).contiguous()
-    n = flat.numel()
-    sent, new_r = torch.empty_like(flat), torch.empty_like(flat)
-    if n == 0:
-        return sent.reshape(x.shape), new_r.reshape(x.shape)
-    _run("topk_ef_dense", x, (flat.data_ptr(), rflat.data_ptr(),
-                              sent.data_ptr(), new_r.data_ptr()), n,
-         -(-n // block), block, k)
-    ef_topk.launches += 1
-    return sent.reshape(x.shape), new_r.reshape(x.shape)
+    x, residual = x.contiguous(), residual.contiguous()
+    n = x.numel()
+    sent, new_r = torch.empty_like(x), torch.empty_like(x)
+    if n:
+        _launch("topk_ef_dense", x, x.data_ptr(), residual.data_ptr(),
+                sent.data_ptr(), new_r.data_ptr(), n, -(-n // block), block,
+                k)
+        ef_topk.launches += 1
+    return sent, new_r
 
 
 #: every kernel's wrapper, by name; each counts its launches

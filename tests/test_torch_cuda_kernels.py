@@ -15,11 +15,17 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import topk_compress as tk  # noqa: E402
 
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+# Each case runs at blocks of 512 and 4096, so k = 511 and 4095 are B - 1
+# at one of them and k = 4095 and 4096 are B (k is clamped to B).
 CASES = [((64,), 1, "normal"), ((4096,), 7, "normal"),
          ((5000,), 40, "normal"), ((32, 257), 512, "normal"),
          ((8, 128, 17), 3, "normal"), ((3000,), 9, "ties"),
          ((1000,), 5, "zeros"), ((700,), 600, "normal"),
-         ((8, 128, 1600), 41, "normal")]
+         ((8, 128, 1600), 41, "normal"), ((4103,), 41, "normal"),
+         ((5003,), 17, "offset"), ((8, 128, 1600), 41, "offset"),
+         ((8192,), 41, "ulp"), ((4100,), 2000, "ulp")]
+CASES += [((4096,), k, regime) for regime in ("equal", "zeros")
+          for k in (1, 511, 4095, 4096)]
 
 
 @pytest.fixture
@@ -30,16 +36,36 @@ def cuda_device():
 
 
 def _input(shape, dtype, regime, seed):
+    """A CPU tensor; see ``_on`` for the "offset" regime."""
     gen = torch.Generator().manual_seed(seed)
     n = math.prod(shape)
+    sign = torch.randint(0, 2, (n,), generator=gen) * 2.0 - 1.0
     if regime == "zeros":
         x = torch.zeros(n)
     elif regime == "ties":
         x = torch.tensor([-1.0, -0.5, 0.0, 0.5, 1.0])[
             torch.randint(0, 5, (n,), generator=gen)]
+    elif regime == "equal":
+        x = 0.75 * sign
+    elif regime == "ulp":
+        # 1 + i ulp: magnitudes that share their top 11-20 bits, so the
+        # whole block is one candidate list of the selection
+        span = {torch.float32: 4096, torch.bfloat16: 16,
+                torch.float16: 128}[dtype]
+        x = sign * (1 + (torch.randperm(n, generator=gen) % span)
+                    * torch.finfo(dtype).eps)
     else:
         x = torch.randn(n, generator=gen)
     return x.reshape(shape).to(dtype)
+
+
+def _on(x, device, regime):
+    """``x`` on the card; for "offset", a view at storage offset 1 (its
+    address is not 16-byte aligned)."""
+    if regime != "offset":
+        return x.to(device)
+    flat = torch.cat([x.new_zeros(1), x.reshape(-1)]).to(device)
+    return flat[1:].reshape(x.shape)
 
 
 def _bits(t):
@@ -60,8 +86,10 @@ def _assert_bits(got, want):
 @pytest.mark.parametrize("shape,kpb,regime", CASES)
 def test_cuda_kernels_bit_exact(cuda_device, shape, kpb, regime, dtype):
     x = _input(shape, dtype, regime, seed=kpb)
+    xd = _on(x, cuda_device, regime)
+    assert (xd.data_ptr() % 16 != 0) == (regime == "offset")
     for block in (512, tk.DEFAULT_BLOCK):
-        v, m = tk.encode_topk(x.to(cuda_device), kpb, block=block)
+        v, m = tk.encode_topk(xd, kpb, block=block)
         dense = tk.decode_topk(v, m, shape)
         torch.cuda.synchronize()
         vr, mr = ref.encode_topk_ref(x, kpb, block=block)
@@ -81,7 +109,7 @@ def test_cuda_ef_and_dense_kernels_bit_exact(cuda_device, shape, kpb, regime,
     there)."""
     x = _input(shape, dtype, regime, seed=kpb)
     r = _input(shape, dtype, regime, seed=kpb + 1000)
-    xd, rd = x.to(cuda_device), r.to(cuda_device)
+    xd, rd = _on(x, cuda_device, regime), _on(r, cuda_device, regime)
     for block in (512, tk.DEFAULT_BLOCK):
         got = [tk.ef_encode_topk(xd, rd, kpb, block=block),
                (tk.blockwise_topk_mask(xd, kpb, block=block),),
@@ -92,6 +120,25 @@ def test_cuda_ef_and_dense_kernels_bit_exact(cuda_device, shape, kpb, regime,
                 ref.ef_topk_ref(x, r, kpb, block=block)]
         for g, w in zip(got, want):
             _assert_bits(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,kpb,block", [(5000, 40, 512), (9000, 41, 4096)])
+def test_cuda_decode_clamps_overfull_bitmaps(cuda_device, n, kpb, block,
+                                             dtype):
+    """A bitmap with more than k bits set: slots past k - 1 read the last
+    value, as the plain version clamps them."""
+    gen = torch.Generator().manual_seed(n)
+    nb = -(-n // block)
+    values = torch.randn(nb, kpb, generator=gen).to(dtype)
+    bitmap = torch.randint(-2 ** 31, 2 ** 31, (nb, block // 32),
+                           generator=gen, dtype=torch.int32)
+    dense = tk.decode_topk(values.to(cuda_device), bitmap.to(cuda_device),
+                           (n,))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(dense), _bits(ref.decode_topk_ref(values, bitmap,
+                                                              (n,))))
 
 
 @pytest.mark.cuda
