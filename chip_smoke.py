@@ -24,14 +24,33 @@
    the boundary gradients), with launch counters set to 0 just before each
    and read just after, and checks them against the plan's
    compressed-message count;
-6. drives the error-feedback and dense entry points (``ef_compress``,
+6. drives the elastic runtime — gpt2-xl at full width and depth,
+   ``ElasticController`` under the joint planner (AdaTopK ratio 100) with
+   ``use_kernel="auto"``, stop-the-world migration and AdamW — for 6 useful
+   steps through one CompNode failure (a stage host of the probe's
+   schedule, lease 1.5 probe iterations): rollback to a checkpoint,
+   re-plan on the survivors and a bit-exact migration of parameters and
+   AdamW state, with the launches of each step held against its plan's
+   compressed messages; it prints each epoch, the migration's envelopes and
+   wire bytes, the checkpoint blob's size and seconds per serialize and
+   deserialize, the host's MemTotal, steady step seconds, and the card's
+   allocation before and peak within each step, update, serialize, restore
+   and migration;
+7. drives the error-feedback and dense entry points (``ef_compress``,
    ``ops.topk_mask``, ``ops.ef_topk``) over 5 steps with the residual
    carried, counting their launches, and holds ``ef_compress`` bit-exact
    against the EF training step's own composition on the card and against
    the CPU's plain version;
-7. checks the output the repository's way: finite losses, RAD equal to
-   single-device autograd on the card at smoke size, and the card's loss
-   curves (plain and error-feedback) against the CPU's on the same weights.
+8. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
+   versions at every (boundary shape, k a block) that the training and
+   elastic paths gave them, derived from each step's plan;
+9. checks the output the repository's way: finite losses, RAD equal to
+   single-device autograd on the card at smoke size, the card's loss
+   curves (plain and error-feedback) against the CPU's on the same weights,
+   and the elastic example's smoke configuration through a failure on the
+   card and on the CPU (stop and overlap: identical epoch records and
+   clock, losses within rel 1e-3; under the dense planner the run through
+   the failure equals the run without it within rel 1e-6).
 
 Every phase raises on failure (exit code 1).  Without a CUDA device it
 exits with code 2 and prints no result.  The last line of standard output
@@ -321,6 +340,62 @@ def compressed_messages(prog, plan) -> int:
     return n
 
 
+def codec_cases(prog, plan, input_shapes) -> set:
+    """(boundary shape, k a block) of each compressed message of ``plan``
+    at ``input_shapes`` — what ``compress_for_edge`` gives the codec
+    (rad.pipeline_forward: the largest ratio over the message's users, k
+    from ``ratio_to_k``, then ``ops.per_block_k``); the gradient goes
+    through the codec at the same shape and k."""
+    from repro_torch.core.compression import ratio_to_k
+    from repro_torch.kernels import ops
+    shapes = prog.graph.infer_shapes(input_shapes)
+    cases = set()
+    for sd in prog.subdags:
+        for a in sd.required_acti:
+            users = [c for c in sd.node_names if a in prog.graph.nodes[c].args]
+            ratio = max([plan.ratio(a, c) for c in users] or [1.0])
+            if ratio > 1.0:
+                n = math.prod(shapes[a])
+                cases.add((tuple(shapes[a]),
+                           ops.per_block_k(n, ratio_to_k(n, ratio))))
+    return cases
+
+
+def check_path_cases(dev, cases) -> dict:
+    """``encode_topk`` and ``decode_topk`` at every (shape, k a block) the
+    driven paths gave them, fp32 as on the paths and bf16 / fp16, bit-exact
+    against the plain versions; returns the max |kernel - plain| of each.
+    Its launches come after the paths' counts were read."""
+    import torch
+    from repro_torch.kernels import ref, topk_compress as tk
+
+    gen = torch.Generator().manual_seed(5)
+    block = tk.DEFAULT_BLOCK
+    err = {"encode_topk": 0.0, "decode_topk": 0.0}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for shape, k in sorted(cases):
+            x = torch.randn(shape, generator=gen).to(dtype).to(dev)
+            v, m = tk.encode_topk(x, k, block)
+            d = tk.decode_topk(v, m, shape)
+            torch.cuda.synchronize()
+            vr, mr = ref.encode_topk_ref(x, k, block)
+            dr = ref.decode_topk_ref(vr, mr, shape)
+            for name, outs in (("encode_topk", [(v, vr), (m, mr)]),
+                               ("decode_topk", [(d, dr)])):
+                if not all(bits_equal(a, b) for a, b in outs):
+                    raise AssertionError(f"{name} != plain version at a "
+                                         f"path's shape: {dtype} {shape} "
+                                         f"k={k}")
+                err[name] = max([err[name]] + [
+                    float((a.float() - b.float()).abs().max())
+                    for a, b in outs if a.is_floating_point()])
+    print(f"path shapes: encode_topk and decode_topk bit-exact against the "
+          f"plain versions at every compressed boundary the paths ran "
+          f"(fp32/bf16/fp16): " + json.dumps(sorted(
+              [list(shape), k] for shape, k in cases)))
+    return err
+
+
 def launch_counts() -> dict:
     from repro_torch.kernels import topk_compress as tk
     return {n: f.launches for n, f in tk.KERNELS.items()}
@@ -367,6 +442,10 @@ def run_training_path(dev):
         results[label] = {
             "stages": len(run.schedule.stage_devices()),
             "compressed_edges": msgs,
+            "codec_cases": sorted(
+                [list(shape), k] for shape, k in codec_cases(
+                    run.runtime.prog, run.plan,
+                    {"tokens": (BATCH, SEQ), "labels": (BATCH, SEQ)})),
             "ratios": sorted(set(run.plan.edge_ratio.values())),
             "losses": run.losses, "step_s": run.step_seconds,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
@@ -459,6 +538,361 @@ def run_entry_points(dev):
           f"ops.topk_mask and ops.ef_topk == CPU, bit for bit; launches "
           + json.dumps(launches))
     return launches
+
+
+ELASTIC_STEPS = 6           # useful AdamW steps through the failure
+ELASTIC_FAIL_AT = 0.4       # failure time as a fraction of the run (example)
+SMOKE_ELASTIC_STEPS = 12    # the smoke-size cross-check's run
+
+
+def mem_total() -> str:
+    with open("/proc/meminfo") as f:
+        return next(line.split(":", 1)[1].strip() for line in f
+                    if line.startswith("MemTotal:"))
+
+
+def probe_failure(graph, prof, cluster, dev, planner, ratio, steps):
+    """The elastic example's trace: a timing-only probe gives the iteration
+    time; its third stage host fails at ELASTIC_FAIL_AT of the run."""
+    from repro_torch.elastic import (ChurnTrace, ElasticController,
+                                     single_failure_trace)
+    probe = ElasticController(graph, prof, cluster, ChurnTrace(()),
+                              n_micro=2, planner=planner, joint_ratio=ratio,
+                              use_kernel="auto", device=dev)
+    t1 = probe.run(steps=1).steps[0].step_seconds
+    victim = probe.schedule.stage_devices()[2]
+    return t1, victim, single_failure_trace(victim,
+                                            at=ELASTIC_FAIL_AT * steps * t1)
+
+
+def micro_batches(ds, batch):
+    """``data_fn`` of the elastic runs: step -> two micro-batches."""
+    def data_fn(step):
+        b = ds.batch(batch, step)
+        mb = batch // 2
+        return [{k: v[i * mb:(i + 1) * mb] for k, v in b.items()}
+                for i in range(2)]
+    return data_fn
+
+
+class ElasticMeter:
+    """Measures the controller's own calls while it runs, and changes none
+    of their results.  Every serialize, restore, migration, training step
+    and AdamW update is one phase with its start and end on the host's
+    clock, the card synced at both: its seconds, the bytes allocated on the
+    card before and after it and its peak allocation (the peak restarts at
+    each phase's start).  Blob bytes, each migration's envelopes and wire
+    bytes, and each training step's codec launches beside the plan's
+    compressed messages and codec shapes are recorded too.  It wraps the
+    names ``controller`` calls (``serialize_state``, ``deserialize_state``,
+    ``apply_moves``), ``DecentralizedRuntime.train_step`` and the
+    optimizer's update; ``check_calls`` fails the run when one of them was
+    not reached as often as the run's records say it was called."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.serialize, self.deserialize, self.moves, self.steps = \
+            [], [], [], []
+        self.cases = set()
+        self.peak = 0
+
+    def _start(self):
+        import torch
+        torch.cuda.synchronize(self.dev)
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated(self.dev))
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        return time.perf_counter(), torch.cuda.memory_allocated(self.dev)
+
+    def _end(self, start) -> dict:
+        import torch
+        torch.cuda.synchronize(self.dev)
+        t0, live = start
+        return {"seconds": time.perf_counter() - t0,
+                "allocated_before_gb": live / 1e9,
+                "allocated_after_gb": torch.cuda.memory_allocated(self.dev)
+                / 1e9,
+                "peak_gb": torch.cuda.max_memory_allocated(self.dev) / 1e9}
+
+    def optimizer(self, opt):
+        from repro_torch.optim.optimizers import Optimizer
+
+        def update(grads, state, params):
+            start = self._start()
+            out = opt.update(grads, state, params)
+            self.steps[-1]["update"] = self._end(start)
+            return out
+        return Optimizer(init=opt.init, update=update)
+
+    def __enter__(self):
+        import repro_torch.elastic.controller as ctl
+        from repro_torch.core.executor import DecentralizedRuntime
+
+        self._saved = (ctl.serialize_state, ctl.deserialize_state,
+                       ctl.apply_moves, DecentralizedRuntime.train_step)
+        ser, deser, apply, step = self._saved
+
+        def serialize_state(params, opt_state=None):
+            start = self._start()
+            blob = ser(params, opt_state)
+            self.serialize.append({**self._end(start), "bytes": len(blob)})
+            return blob
+
+        def deserialize_state(blob, params, opt_state=None):
+            start = self._start()
+            out = deser(blob, params, opt_state)
+            self.deserialize.append({**self._end(start), "bytes": len(blob)})
+            return out
+
+        def apply_moves(params, opt_state, moves, trace=None):
+            start = self._start()
+            out = apply(params, opt_state, moves, trace)
+            self.moves.append({**self._end(start), "ops": len(moves),
+                               "envelopes": out.n_envelopes,
+                               "wire_bytes": out.wire_bytes})
+            return out
+
+        def train_step(rt, params, mbs):
+            before = launch_counts()
+            start = self._start()
+            out = step(rt, params, mbs)
+            phase = self._end(start)
+            after = launch_counts()
+            self.cases |= codec_cases(rt.prog, rt.plan, {
+                k: tuple(v.shape) for k, v in mbs[0].items()})
+            self.steps.append({
+                "train": phase,
+                "launches": {n: after[n] - before[n] for n in after},
+                "messages": compressed_messages(rt.prog, rt.plan) * 2
+                * len(mbs)})
+            return out
+
+        ctl.serialize_state, ctl.deserialize_state = (serialize_state,
+                                                      deserialize_state)
+        ctl.apply_moves = apply_moves
+        DecentralizedRuntime.train_step = train_step
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        import repro_torch.elastic.controller as ctl
+        from repro_torch.core.executor import DecentralizedRuntime
+        (ctl.serialize_state, ctl.deserialize_state, ctl.apply_moves,
+         DecentralizedRuntime.train_step) = self._saved
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated(self.dev))
+        return False
+
+    def check_calls(self, res, interval: int) -> None:
+        """One training step and one update for each step record, one
+        serialize at step 0 and one at each executed step that is a
+        multiple of ``interval``, one restore for each rollback, and at
+        least one migration, each with envelopes."""
+        rollbacks = sum(1 for e in res.epochs if e.rollback_steps)
+        serializes = 1 + sum(1 for r in res.steps if r.step % interval == 0)
+        if len(self.steps) != len(res.steps) \
+                or not all("update" in st for st in self.steps) \
+                or len(self.serialize) != serializes \
+                or len(self.deserialize) != rollbacks \
+                or not self.moves \
+                or not all(m["envelopes"] for m in self.moves):
+            raise AssertionError(
+                f"elastic: measured {len(self.steps)} train steps "
+                f"({sum('update' in st for st in self.steps)} updates), "
+                f"{len(self.serialize)} serializes, {len(self.deserialize)} "
+                f"restores, migrations {self.moves}; the records say "
+                f"{len(res.steps)} steps, {serializes} serializes, "
+                f"{rollbacks} rollbacks")
+
+
+def run_elastic_path(dev):
+    """gpt2-xl full through one CompNode failure: ``ElasticController``
+    (joint planner, AdaTopK ratio 100, stop-the-world migration, AdamW,
+    checkpoints every 3 steps with 2 kept) for ELASTIC_STEPS useful steps,
+    the kernels' launches counted from just before the run to just after.
+    Returns the path's launch counts and the (shape, k a block) of every
+    compressed boundary it ran."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core import network
+    from repro_torch.data import SyntheticLM
+    from repro_torch.elastic import ElasticController
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.models.opgraph_models import gpt_opgraph
+    from repro_torch.optim import adamw
+
+    print(f"elastic: host MemTotal {mem_total()}")
+    cfg = resolve("gpt2-xl").full
+    graph = gpt_opgraph(cfg, BATCH, SEQ)
+    shapes = {"tokens": (BATCH, SEQ), "labels": (BATCH, SEQ)}
+    prof = graph.annotate(shapes)
+    cluster = network.paper_testbed(1, seed=0)
+    t1, victim, trace = probe_failure(graph, prof, cluster, dev, "joint",
+                                      100.0, ELASTIC_STEPS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    # the list hands the controller the only reference to the initial
+    # weights, which it drops at the first update
+    params = [graph.init(gen, shapes)]
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0, order=1)
+    meter = ElasticMeter(dev)
+    ctrl = ElasticController(
+        graph, prof, cluster, trace, optimizer=meter.optimizer(adamw(3e-4)),
+        n_micro=2, lease_s=1.5 * t1, migration_mode="stop",
+        planner="joint", joint_ratio=100.0, use_kernel="auto",
+        checkpoint_interval=3, checkpoint_history=2, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    allocated = torch.cuda.memory_allocated(dev)
+    tk.reset_launch_counts()            # this path's counts start here
+    t0 = time.perf_counter()
+    with meter:
+        res = ctrl.run(steps=ELASTIC_STEPS,
+                       data_fn=micro_batches(ds, BATCH), params=params.pop())
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+
+    meter.check_calls(res, interval=3)
+    losses = [r.loss for r in res.steps]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"elastic: non-finite loss {losses}")
+    if res.useful_steps != ELASTIC_STEPS:
+        raise AssertionError(f"elastic: {res.useful_steps} useful steps")
+    fail = [e for e in res.epochs if e.cause == "failure"]
+    if len(fail) != 1 or not fail[0].rollback_steps or not fail[0].n_moves:
+        raise AssertionError(f"elastic: expected one failure epoch with a "
+                             f"rollback and moves: {res.epochs}")
+    by_epoch = {}
+    for rec, st in zip(res.steps, meter.steps):
+        expect = {n: st["messages"] if n in ("encode_topk", "decode_topk")
+                  else 0 for n in tk.KERNELS}
+        if st["launches"] != expect:
+            raise AssertionError(f"elastic: step {rec.step} of epoch "
+                                 f"{rec.epoch}: launches {st['launches']}, "
+                                 f"expected {expect}")
+        e = by_epoch.setdefault(rec.epoch, {"steps": 0, "encode_topk": 0,
+                                            "decode_topk": 0})
+        e["steps"] += 1
+        e["encode_topk"] += st["launches"]["encode_topk"]
+        e["decode_topk"] += st["launches"]["decode_topk"]
+    total = {n: sum(st["launches"][n] for st in meter.steps)
+             for n in tk.KERNELS}
+    if got != total or not total["encode_topk"]:
+        raise AssertionError(f"elastic: launches {got} vs per step {total}")
+    for e in res.epochs:
+        print("elastic epoch " + json.dumps({
+            "epoch": e.epoch, "cause": e.cause, "at_step": e.at_step,
+            "replan_mode": e.replan_mode, "stages": len(e.stage_devices),
+            "moves": e.n_moves, "moved_mb": e.moved_bytes / 1e6,
+            "rollback_steps": e.rollback_steps,
+            "detect_s": e.detect_seconds, "migrate_s": e.migrate_seconds,
+            "refill_s": e.refill_seconds, "clock_s": e.clock,
+            "launches": by_epoch.get(e.epoch)}))
+    step_s = [st["train"]["seconds"] + st["update"]["seconds"]
+              for st in meter.steps]
+    steady = [t for r, t in zip(res.steps, step_s)
+              if not r.lost and r.step > 1]
+    # per executed step: GB allocated before it, peak in the training step,
+    # peak in the update, allocated after the update
+    memory = [(r.step, r.epoch, r.lost, st["train"]["allocated_before_gb"],
+               st["train"]["peak_gb"], st["update"]["peak_gb"],
+               st["update"]["allocated_after_gb"])
+              for r, st in zip(res.steps, meter.steps)]
+    report = {
+        "victim": victim, "probe_iteration_s": t1,
+        "steps_run": len(res.steps),
+        "lost_steps": sum(r.lost for r in res.steps),
+        "losses": [(r.step, r.loss, r.lost) for r in res.steps],
+        "step_s": step_s, "steady_step_s": steady,
+        "step_memory_gb": memory, "migrations": meter.moves,
+        "serialize": meter.serialize, "deserialize": meter.deserialize,
+        "allocated_at_start_gb": allocated / 1e9,
+        "peak_mem_gb": meter.peak / 1e9, "wall_s": wall,
+        "sim_total_s": res.total_seconds, "launches": got}
+    print("elastic path: " + json.dumps(report))
+    del res, ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, meter.cases
+
+
+def check_elastic_smoke(dev):
+    """The elastic example's smoke configuration (6 layers, d_model 64,
+    batch 8, seq 32, joint planner at AdaTopK ratio 8) through one failure,
+    on the card and on the CPU from the same weights, in stop and overlap
+    mode: the epoch and step records and the simulated clock must be
+    identical, the losses within rel 1e-3.  Under the dense planner the
+    card's run through the failure must give the losses of a run with no
+    failure, step for step, within rel 1e-6."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import ModelCfg
+    from repro_torch.core import network
+    from repro_torch.core.rad import tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.elastic import ChurnTrace, ElasticController
+    from repro_torch.models.opgraph_models import gpt_opgraph
+    from repro_torch.optim import adamw
+
+    batch, seq, steps = 8, 32, SMOKE_ELASTIC_STEPS
+    cfg = ModelCfg(name="gpt-elastic-demo", family="dense", n_layers=6,
+                   d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab=128,
+                   rope_fraction=0.0, max_seq=seq, norm="layernorm",
+                   act="gelu")
+    graph = gpt_opgraph(cfg, batch, seq)
+    shapes = {"tokens": (batch, seq), "labels": (batch, seq)}
+    prof = graph.annotate(shapes)
+    cluster = network.paper_testbed(1, seed=0)
+    params_cpu = graph.init(torch.Generator().manual_seed(0), shapes)
+    data_fn = micro_batches(SyntheticLM(vocab=cfg.vocab, seq_len=seq,
+                                        seed=0, order=1), batch)
+
+    def run(d, mode, planner, fail=True):
+        t1, _, trace = probe_failure(graph, prof, cluster, d, planner, 8.0,
+                                     steps)
+        ctrl = ElasticController(
+            graph, prof, cluster, trace if fail else ChurnTrace(()),
+            optimizer=adamw(lr=3e-3), n_micro=2, lease_s=1.5 * t1,
+            migration_mode=mode, planner=planner, joint_ratio=8.0,
+            use_kernel="auto", device=d)
+        return ctrl.run(steps=steps, data_fn=data_fn,
+                        params=tree_map(lambda t: t.to(d), params_cpu))
+
+    def records(res):
+        steps_ = [dataclasses.asdict(r) for r in res.steps]
+        for r in steps_:
+            r.pop("loss")
+        return ([dataclasses.asdict(e) for e in res.epochs], steps_,
+                res.total_seconds)
+
+    report = {}
+    for mode in ("stop", "overlap"):
+        card = run(dev, mode, "joint")
+        cpu = run(torch.device("cpu"), mode, "joint")
+        if records(card) != records(cpu):
+            raise AssertionError(f"elastic smoke {mode}: card and CPU epoch "
+                                 f"or step records differ")
+        if not any(e.cause == "failure" for e in card.epochs):
+            raise AssertionError(f"elastic smoke {mode}: no failure epoch")
+        gap = max(abs(a.loss - b.loss) / abs(b.loss)
+                  for a, b in zip(card.steps, cpu.steps))
+        if gap > 1e-3:
+            raise AssertionError(f"elastic smoke {mode}: card and CPU losses "
+                                 f"differ by rel {gap}")
+        report[mode] = {"epochs": [(e.cause, e.replan_mode, e.n_moves,
+                                    e.rollback_steps) for e in card.epochs],
+                        "clock_s": card.total_seconds,
+                        "max_rel_loss_gap_card_cpu": gap}
+    failed = dict(run(dev, "stop", "opfence").losses)
+    clean = dict(run(dev, "stop", "opfence", fail=False).losses)
+    if set(failed) != set(clean):
+        raise AssertionError("elastic smoke opfence: steps differ")
+    gap = max(abs(failed[s] - clean[s]) / abs(clean[s]) for s in clean)
+    if gap > 1e-6:
+        raise AssertionError(f"elastic smoke opfence: the run through the "
+                             f"failure differs from the run without it by "
+                             f"rel {gap}")
+    report["opfence_max_rel_gap_failure_vs_none"] = gap
+    print("elastic smoke checks: " + json.dumps(report))
 
 
 def check_against_reference(dev):
@@ -561,14 +995,23 @@ def main() -> int:
 
     err = check_kernels(dev)
     timing = measure_kernels(dev)
+    training = run_training_path(dev)
     paths = {f"train {label}": r["launches"]
-             for label, r in run_training_path(dev).items()}
+             for label, r in training.items()}
+    cases = {(tuple(shape), k) for r in training.values()
+             for shape, k in r["codec_cases"]}
+    paths["train elastic"], elastic_cases = run_elastic_path(dev)
     paths["entry points"] = run_entry_points(dev)
-    check_against_reference(dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on its path: "
                              f"{launches}")
+    if not elastic_cases or not cases:
+        raise AssertionError("a training path ran no compressed boundary")
+    for name, e in check_path_cases(dev, cases | elastic_cases).items():
+        err[name] = max(err[name], e)
+    check_against_reference(dev)
+    check_elastic_smoke(dev)
 
     main_shape = timing[(BATCH, SEQ, 1600)]
     kernels = []

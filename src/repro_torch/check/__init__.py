@@ -1,9 +1,11 @@
 """``repro_torch.check`` — the slice of the static plan-verifier the
-training path needs: typed findings/errors and the schedule checks that
-``schedule_opfence(verify=True)`` runs.  :mod:`.errors` is imported
-eagerly (the core IR raises :class:`GraphCheckError` while
-``repro_torch.core`` is still initialising); :mod:`.schedule` loads on
-first use."""
+training path and the elastic runtime need: typed findings/errors, the
+schedule checks that ``schedule_opfence(verify=True)`` runs, the
+compression-plan and cost-model checks (:mod:`.costs`, run by
+``schedule_joint`` and the controller) and the re-plan checks
+(:mod:`.elastic`, run by ``replan``).  :mod:`.errors` is imported eagerly
+(the core IR raises :class:`GraphCheckError` while ``repro_torch.core`` is
+still initialising); the checker modules load on first use."""
 from __future__ import annotations
 
 from .errors import (BaselineCheckError, CheckError, CompressionCheckError,

@@ -25,7 +25,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from .compression import CompressionPlan, plan_none
 from .costmodel import EdgeCostModel
-from .estimator import ClusterSpec
+from .estimator import ClusterSpec, LinkSpec
 from .opgraph import OpData, OpGraph, OpProfile, OpType
 from .rad import (PipelineProgram, init_ef_state, pipeline_loss_and_grad,
                   pipeline_loss_and_grad_ef, tree_map)
@@ -496,3 +496,95 @@ def simulate_iteration(graph: OpGraph, profiles: Mapping[str, OpProfile],
         device_busy=[busy.get(d, 0.0) for d in range(n_dev)],
         link_busy=comm_f + comm_b, comm_bytes=bytes_f + bytes_b,
         events=sorted(events), compress_busy=enc_f + enc_b)
+
+
+
+
+# ================================================= churn-event simulation ==
+# Default α–β for restoring state out of the broker's checkpoint store when
+# the original owner is gone (a dead CompNode cannot send).  Roughly the
+# intra-cluster tier of network.py — the broker sits inside one cluster.
+CHECKPOINT_LINK = LinkSpec(alpha=1e-3, beta=8.0 / 1e9)   # 1 Gbps
+
+
+@dataclasses.dataclass(frozen=True)
+class MigrationSim:
+    """Simulated wall-clock of one state migration (elastic re-plan)."""
+
+    seconds: float
+    total_bytes: float
+    n_transfers: int
+    events: Tuple[Tuple[float, float, str], ...] = ()
+
+
+def simulate_migration(transfers: Mapping[Tuple[Optional[int], int], float],
+                       cluster: ClusterSpec,
+                       checkpoint_link: LinkSpec = CHECKPOINT_LINK,
+                       bandwidth_fraction: float = 1.0) -> MigrationSim:
+    """Discrete-event replay of a migration plan's bulk transfers.
+
+    ``transfers`` maps (src CompNode, dst CompNode) -> bytes; ``src=None``
+    means the original owner is dead and the payload streams from the
+    broker's checkpoint store over ``checkpoint_link``.  Each node's uplink
+    and downlink is a serial resource (so one node fanning state out to many
+    peers serializes, as does a node receiving from many), and the broker's
+    checkpoint store is one shared uplink; transfers on disjoint endpoints
+    overlap.  Deterministic: transfers run in sorted key order.
+
+    ``bandwidth_fraction`` < 1 models background migration sharing links with
+    foreground boundary traffic (overlapped-migration mode): each transfer
+    sees only that fraction of the link's bandwidth (α unchanged).
+    """
+    if not (0.0 < bandwidth_fraction <= 1.0):
+        raise ValueError("bandwidth_fraction in (0, 1]")
+    up_free: Dict[Any, float] = {}
+    down_free: Dict[int, float] = {}
+    events: List[Tuple[float, float, str]] = []
+    total_bytes = 0.0
+    finish = 0.0
+    order = sorted(transfers.items(),
+                   key=lambda kv: (kv[0][0] is None, kv[0]))
+    for (src, dst), nbytes in order:
+        if nbytes <= 0:
+            continue
+        if src is None:
+            lk = checkpoint_link
+            src_key: Any = "__ckpt__"
+        else:
+            lk = cluster.link(src, dst)
+            src_key = src
+        # throttled stream = same α–β link carrying the scaled-up payload
+        t = lk.time(float(nbytes) / bandwidth_fraction)
+        start = max(up_free.get(src_key, 0.0), down_free.get(dst, 0.0))
+        end = start + t
+        up_free[src_key] = end
+        down_free[dst] = end
+        finish = max(finish, end)
+        total_bytes += nbytes
+        events.append((start, end, f"mig:{src if src is not None else 'ckpt'}"
+                                   f"->{dst}"))
+    return MigrationSim(seconds=finish, total_bytes=total_bytes,
+                        n_transfers=len(events), events=tuple(events))
+
+
+def pipeline_fill_seconds(graph: OpGraph, profiles: Mapping[str, OpProfile],
+                          schedule: Schedule, cluster: ClusterSpec,
+                          plan: Optional[CompressionPlan] = None,
+                          cost_model: Optional[EdgeCostModel] = None) -> float:
+    """Fill cost of a cold pipeline: one micro-batch traversing every stage
+    sequentially, FP + BP (the Σ_p (C_p + R_p) term of Eq. 3).  Charged by
+    the elastic controller after every re-plan — a fresh schedule starts with
+    an empty pipeline.  ``cost_model`` is rebased onto ``cluster`` exactly as
+    in :func:`simulate_iteration`."""
+    if cost_model is not None:
+        model = cost_model.with_cluster(cluster)
+    else:
+        model = EdgeCostModel(graph, profiles, cluster,
+                              plan or plan_none(graph, schedule.placement))
+    total = 0.0
+    for backward in (False, True):
+        _, comp, edges, _ = _stage_tables(graph, profiles, schedule, cluster,
+                                          model, backward)
+        total += sum(comp) + sum(t + t_enc
+                                 for (_, _, t, _, _, t_enc, _) in edges)
+    return total

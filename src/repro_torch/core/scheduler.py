@@ -21,6 +21,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .compression import CompressionPlan, plan_adatopk
 from .costmodel import EdgeCostModel
 from .estimator import ClusterSpec
 from .opgraph import OpGraph, OpProfile, build_subdags, SubDag
@@ -235,7 +236,8 @@ def schedule_opfence(graph: OpGraph, profiles: Mapping[str, OpProfile],
     ``cost_model`` is the unified byte/seconds source the DP split reads; a
     plan-bearing :class:`repro_torch.core.costmodel.EdgeCostModel` re-schedules
     under that compression plan (AdaTopK shrinks the slowest edges, which can
-    change the optimal split).  Defaults to dense transport.
+    change the optimal split — the :func:`schedule_joint` co-planner iterates
+    exactly this loop).  Defaults to dense transport.
 
     ``device_subset`` restricts placement to the listed CompNodes (the elastic
     runtime re-plans on the survivors after churn); the returned Schedule
@@ -279,10 +281,105 @@ def schedule_opfence(graph: OpGraph, profiles: Mapping[str, OpProfile],
     return sched
 
 
+# ---------------------------------------------------- joint co-planning ----
+@dataclasses.dataclass
+class JointPlan:
+    """Converged output of :func:`schedule_joint`: the schedule, the AdaTopK
+    plan it was cut under, the plan-bearing cost model (single source of
+    truth for every downstream byte account), and how the fixed point ran."""
+
+    schedule: Schedule
+    plan: CompressionPlan
+    cost_model: EdgeCostModel
+    predicted_pace: float
+    iterations: int
+    converged: bool
+
+
+def schedule_joint(graph: OpGraph, profiles: Mapping[str, OpProfile],
+                   cluster: ClusterSpec, ratio: float = 100.0,
+                   encoding: str = "paper", seed: int = 0,
+                   device_subset: Optional[Sequence[int]] = None,
+                   max_rounds: int = 4,
+                   cost_model: Optional[EdgeCostModel] = None,
+                   verify: bool = True) -> JointPlan:
+    """OP-Fence × AdaTopK fixed-point co-planner.
+
+    The blind pipeline (schedule on dense bytes, then compress) is
+    sub-optimal whenever compression changes which cut is
+    bottleneck-limiting: AdaTopK shrinks the slowest edges by up to the
+    encoding factor, so a cut that avoided a WAN boundary at dense costs may
+    afford it compressed — and vice versa.  This iterates
+
+        schedule (under current edge costs) → plan_adatopk → re-cost
+
+    to convergence (identical assignment) or ``max_rounds``, and returns the
+    best (schedule, plan) pair seen, scored by the unified model's Eq. 3
+    steady-state pace.  Round 0 *is* the sequential schedule-then-compress
+    baseline, so the result is never worse than it under the shared metric.
+
+    ``cost_model`` seeds the iteration's base (dense) model — pass one
+    carrying telemetry-calibrated link corrections so the closed planning
+    loop co-plans against the links as *measured*, not as spec'd.  Its plan
+    (if any) is stripped and it is rebased onto ``cluster``.
+
+    ``verify=True`` (default) statically verifies the *winning*
+    (schedule, plan) pair through :mod:`repro_torch.check` — schedule coverage/
+    contiguity plus the AdaTopK break-even bounds and, when the model
+    carries calibrated kernel costs, encode profitability (no chosen ratio
+    may cost more codec time than the wire time it saves); intermediate
+    fixed-point rounds are never verified (they are search states, not
+    plans).
+    """
+    dense_model = (cost_model.with_cluster(cluster).with_plan(None)
+                   if cost_model is not None
+                   else EdgeCostModel(graph, profiles, cluster))
+    sched = schedule_opfence(graph, profiles, cluster, seed=seed,
+                             cost_model=dense_model,
+                             device_subset=device_subset, verify=False)
+    best: Optional[JointPlan] = None
+    seen_assignments = []
+    converged = False
+    for it in range(max_rounds):
+        plan = plan_adatopk(graph, profiles, cluster, sched.placement, ratio,
+                            encoding=encoding, cost_model=dense_model)
+        model = dense_model.with_plan(plan)
+        pace = model.stage_pace(sched)
+        if best is None or pace < best.predicted_pace:
+            best = JointPlan(schedule=sched, plan=plan, cost_model=model,
+                             predicted_pace=pace, iterations=it + 1,
+                             converged=False)
+        if sched.assignment in seen_assignments:
+            converged = True       # fixed point (or 2-cycle) reached
+            break
+        seen_assignments.append(sched.assignment)
+        if it == max_rounds - 1:
+            break                  # a re-cut now would never be scored
+        sched = schedule_opfence(graph, profiles, cluster, seed=seed,
+                                 cost_model=model,
+                                 device_subset=device_subset, verify=False)
+    best.converged = converged
+    best.schedule = dataclasses.replace(
+        best.schedule, predicted_pace=best.predicted_pace)
+    if verify:
+        from repro_torch.check.costs import verify_plan
+        from repro_torch.check.schedule import verify_schedule
+        verify_schedule(graph, best.schedule, profiles=profiles,
+                        cluster=cluster,
+                        alive=_resolve_subset(cluster, device_subset),
+                        check_capacity=False)
+        verify_plan(graph, profiles, best.plan,
+                    placement=best.schedule.placement,
+                    cost_model=best.cost_model)
+    return best
+
+
 SCHEDULERS = {
     "equal_number":
         lambda g, prof, cl, **kw: schedule_equal_number(g, cl, **kw),
     "equal_compute":
         lambda g, prof, cl, **kw: schedule_equal_compute(g, prof, cl, **kw),
     "opfence": lambda g, prof, cl, **kw: schedule_opfence(g, prof, cl, **kw),
+    "joint": lambda g, prof, cl, **kw: schedule_joint(g, prof, cl,
+                                                      **kw).schedule,
 }

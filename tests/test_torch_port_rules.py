@@ -70,6 +70,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         train.train_fusion(cfg, batch=2, seq=8, steps=1)
     DecentralizedRuntime(graph, sch, device="cpu")
+    from repro_torch.elastic import ChurnTrace, ElasticController
+    assert inspect.signature(ElasticController.__init__).parameters[
+        "device"].default == "cuda"
+    cluster = network.paper_testbed(1, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ElasticController(graph, prof, cluster, ChurnTrace(()))
+    ctrl = ElasticController(graph, prof, cluster, ChurnTrace(()),
+                             device="cpu")
+    assert ctrl.runtime.device.type == "cpu"
 
 
 def test_cuda_wrappers_refuse_other_devices():
