@@ -24,7 +24,14 @@
    the boundary gradients), with launch counters set to 0 just before each
    and read just after, and checks them against the plan's
    compressed-message count;
-6. drives the elastic runtime — gpt2-xl at full width and depth,
+6. drives the gspmd path — ``train_gspmd``, the launcher's default mode:
+   gpt2-xl at full width and depth as one model on the card, batch 8, seq
+   128, fp32, 4 AdamW steps — with the launch counters set to 0 just
+   before it and read just after (it runs no codec, so all stay 0); prints
+   the step seconds, tokens/s and peak memory, times one more step in its
+   parts (forward, backward, clip, update) with CUDA events, and runs 2
+   Adafactor steps at the same size for their peak memory;
+7. drives the elastic runtime — gpt2-xl at full width and depth,
    ``ElasticController`` under the joint planner (AdaTopK ratio 100) with
    ``use_kernel="auto"``, stop-the-world migration and AdamW — for 6 useful
    steps through one CompNode failure (a stage host of the probe's
@@ -36,25 +43,28 @@
    deserialize, the host's MemTotal, steady step seconds, and the card's
    allocation before and peak within each step, update, serialize, restore
    and migration;
-7. drives the error-feedback and dense entry points (``ef_compress``,
+8. drives the error-feedback and dense entry points (``ef_compress``,
    ``ops.topk_mask``, ``ops.ef_topk``) over 5 steps with the residual
    carried, counting their launches, and holds ``ef_compress`` bit-exact
    against the EF training step's own composition on the card and against
    the CPU's plain version;
-8. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
+9. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
    versions at every (boundary shape, k a block) that the training and
    elastic paths gave them, derived from each step's plan;
-9. checks the output the repository's way: finite losses, RAD equal to
-   single-device autograd on the card at smoke size, the card's loss
-   curves (plain and error-feedback) against the CPU's on the same weights,
-   and the elastic example's smoke configuration through a failure on the
-   card and on the CPU (stop and overlap: identical epoch records and
-   clock, losses within rel 1e-3; under the dense planner the run through
-   the failure equals the run without it within rel 1e-6).
+10. checks the output the repository's way: finite losses, RAD equal to
+    single-device autograd on the card at smoke size, the card's loss
+    curves (plain and error-feedback) against the CPU's on the same
+    weights, gpt2-smoke through ``train_gspmd`` on the card against the
+    CPU (losses within rel 1e-3), and the elastic example's smoke
+    configuration through a failure on the card and on the CPU (stop and
+    overlap: identical epoch records and clock, losses within rel 1e-3;
+    under the dense planner the run through the failure equals the run
+    without it within rel 1e-6).
 
-Every phase raises on failure (exit code 1).  Without a CUDA device it
-exits with code 2 and prints no result.  The last line of standard output
-is ``{"ok": true, "device": {...}}``.
+Every phase raises on failure (exit code 1).  Without a CUDA device, or
+without ``src/repro_torch`` beside it, it exits with code 2 and prints no
+result.  The last line of standard output is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -463,6 +473,144 @@ def run_training_path(dev):
         gc.collect()
         torch.cuda.empty_cache()
     return results
+
+
+GSPMD_STEPS = 4             # AdamW steps of the gspmd path (the launcher's)
+ADAFACTOR_STEPS = 2         # Adafactor steps at the same size
+GSPMD_SMOKE_STEPS = 3       # gpt2-smoke, card against CPU
+
+
+def time_step_phases(cfg, params, opt_state, opt, batch, dev) -> dict:
+    """One more training step from (params, opt_state) with CUDA events
+    between its parts: the forward (``train_loss``), the backward, the
+    global-norm clip and the optimizer's update — the parts of
+    ``make_train_step``, in its order.  Milliseconds each."""
+    import torch
+    from repro_torch.core.rad import tree_map
+    from repro_torch.models import causal_lm
+    from repro_torch.optim import clip_by_global_norm
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    torch.cuda.synchronize(dev)
+    ev[0].record()
+    loss, _ = causal_lm.train_loss(cfg, leaves, batch)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    loss = loss.detach()                # the graph holds the leaves
+    grads, _ = clip_by_global_norm(tree_map(lambda p: p.grad, leaves), 1.0)
+    del leaves                          # the unclipped gradients go here
+    ev[3].record()
+    new = opt.update(grads, opt_state, params)
+    ev[4].record()
+    torch.cuda.synchronize(dev)
+    del new, grads
+    parts = ("forward", "backward", "clip", "update")
+    out = {f"{name}_ms": ev[i].elapsed_time(ev[i + 1])
+           for i, name in enumerate(parts)}
+    out["step_ms"] = ev[0].elapsed_time(ev[4])
+    out["loss"] = float(loss)
+    return out
+
+
+def run_gspmd_path(dev):
+    """gpt2-xl full through ``train_gspmd`` (the launcher's default mode):
+    the whole model on the card, AdamW, GSPMD_STEPS steps, launch counts
+    from just before the run to just after (this path runs no codec); then
+    one step timed in parts, and ADAFACTOR_STEPS Adafactor steps."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.launch.train import train_gspmd
+    from repro_torch.obs import slog
+    from repro_torch.optim import adafactor, adamw, linear_warmup_cosine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = resolve("gpt2-xl").full
+    log = slog.get_logger("chip_smoke")
+    opt = adamw(linear_warmup_cosine(3e-4, 10, GSPMD_STEPS),
+                weight_decay=0.0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    allocated = torch.cuda.memory_allocated(dev)
+    tk.reset_launch_counts()            # this path's counts start here
+    t0 = time.perf_counter()
+    run = train_gspmd(cfg, batch=BATCH, seq=SEQ, steps=GSPMD_STEPS, lr=3e-4,
+                      device=dev, optimizer=opt, data_order=1, log=log,
+                      log_every=1)
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(x) for x in run.losses):
+        raise AssertionError(f"gspmd: non-finite loss {run.losses}")
+    if any(got.values()):
+        raise AssertionError(f"gspmd: the codec ran on a path without "
+                             f"compression: {got}")
+    steady = run.step_seconds[1:]
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0, order=1)
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in ds.batch(BATCH, GSPMD_STEPS).items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    phases = time_step_phases(cfg.replace(max_seq=max(cfg.max_seq, SEQ)),
+                              run.params, run.opt_state, opt, batch, dev)
+    phases["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not math.isfinite(phases["loss"]):
+        raise AssertionError(f"gspmd: non-finite timed step {phases}")
+    report = {
+        "params": sum(t.numel() for t in tree_leaves(run.params)),
+        "losses": run.losses, "grad_norms": [m["grad_norm"]
+                                             for m in run.metrics],
+        "step_s": run.step_seconds, "first_step_s": run.step_seconds[0],
+        "steady_step_s": steady,
+        "tokens_per_s": BATCH * SEQ * len(steady) / sum(steady),
+        "allocated_before_gb": allocated / 1e9, "peak_mem_gb": peak / 1e9,
+        "wall_s": wall, "launches": got, "timed_step": phases}
+    print("gspmd path: " + json.dumps(report))
+    del run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = train_gspmd(cfg, batch=BATCH, seq=SEQ, steps=ADAFACTOR_STEPS,
+                      device=dev, optimizer=adafactor(1e-3), data_order=1,
+                      log=log, log_every=1)
+    if not all(math.isfinite(x) for x in run.losses):
+        raise AssertionError(f"gspmd adafactor: non-finite loss "
+                             f"{run.losses}")
+    print("gspmd adafactor: " + json.dumps({
+        "losses": run.losses, "step_s": run.step_seconds,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def check_gspmd_smoke(dev):
+    """gpt2-smoke through ``train_gspmd`` on the card and on the CPU from
+    the same weights and data: losses within rel 1e-3."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.launch.train import train_gspmd
+    from repro_torch.models import causal_lm
+
+    cfg = resolve("gpt2-xl").smoke
+    params = causal_lm.init(cfg, torch.Generator().manual_seed(1))
+    curves = {side: train_gspmd(cfg, batch=8, seq=32,
+                                steps=GSPMD_SMOKE_STEPS, device=d,
+                                params=params, data_order=1,
+                                log_every=100).losses
+              for side, d in (("card", dev), ("cpu", torch.device("cpu")))}
+    gap = max(abs(x - y) / abs(y) for x, y in zip(curves["card"],
+                                                  curves["cpu"]))
+    if gap > 1e-3 or not all(math.isfinite(x) for x in curves["card"]):
+        raise AssertionError(f"gspmd: card and CPU loss curves differ: "
+                             f"{curves}")
+    print(f"gspmd smoke check: card {curves['card']} vs cpu "
+          f"{curves['cpu']} (max rel {gap:.3e})")
 
 
 def nonzero_residuals(ef_state) -> int:
@@ -973,6 +1121,10 @@ def check_against_reference(dev):
 
 
 def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
+              f"run it from a checkout of the repository", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1000,6 +1152,7 @@ def main() -> int:
              for label, r in training.items()}
     cases = {(tuple(shape), k) for r in training.values()
              for shape, k in r["codec_cases"]}
+    paths["train gspmd"] = run_gspmd_path(dev)
     paths["train elastic"], elastic_cases = run_elastic_path(dev)
     paths["entry points"] = run_entry_points(dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
@@ -1011,6 +1164,7 @@ def main() -> int:
     for name, e in check_path_cases(dev, cases | elastic_cases).items():
         err[name] = max(err[name], e)
     check_against_reference(dev)
+    check_gspmd_smoke(dev)
     check_elastic_smoke(dev)
 
     main_shape = timing[(BATCH, SEQ, 1600)]

@@ -1,16 +1,22 @@
-"""Training launcher, ``--mode fusion``: the paper's decentralized runtime.
+"""Training launcher.
 
-OP-Fence schedule over a simulated geo cluster, RAD executor with AdaTopK
-compression through the CUDA wire codec (``use_kernel="auto"``); reports
-the REAL loss curve and step time on the card plus the SIMULATED
-per-iteration wall time on the chosen testbed.
+Two modes, as in the JAX package:
+* ``gspmd`` (the default) — the whole model (``causal_lm``) on one device:
+  autograd, global-norm clip and AdamW each step;
+* ``fusion`` — the paper's decentralized runtime: OP-Fence schedule over a
+  simulated geo cluster, RAD executor with AdaTopK compression through the
+  CUDA wire codec (``use_kernel="auto"``); reports the REAL loss curve and
+  step time on the card plus the SIMULATED per-iteration wall time on the
+  chosen testbed.
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
+        --size smoke --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-xl \
         --size smoke --mode fusion --steps 50 --compress adatopk --ratio 100
 
 Runs on ``--device cuda`` (the default; a missing card is an error) or
-``--device cpu``.  ``--mode gspmd`` is not ported yet.  Reporting goes
-through :mod:`repro_torch.obs.slog` — ``event k=v`` lines on stderr.
+``--device cpu``.  Reporting goes through :mod:`repro_torch.obs.slog` —
+``event k=v`` lines on stderr.
 """
 from __future__ import annotations
 
@@ -109,11 +115,82 @@ def train_fusion(cfg, *, batch: int = 8, seq: int = 128, steps: int = 50,
                      runtime=runtime, plan=plan, schedule=sch, sim=sim)
 
 
+@dataclasses.dataclass
+class GspmdRun:
+    """What one gspmd training run produced."""
+
+    losses: List[float]
+    step_seconds: List[float]     # host wall clock per step, device synced
+    metrics: List[dict]           # per step: loss, grad_norm, ce, aux
+    params: Any                   # the trained parameters
+    opt_state: Any
+
+
+def train_gspmd(cfg, *, batch: int = 8, seq: int = 128, steps: int = 50,
+                lr: float = 3e-3, device: DeviceLike = "cuda",
+                optimizer: Any = None, params: Any = None,
+                data_order: int = 2, ckpt_dir: Optional[str] = None,
+                ckpt_every: int = 0,
+                log: Optional[slog.StructuredLogger] = None,
+                log_every: int = 10) -> GspmdRun:
+    """Train ``cfg``'s whole model for ``steps`` steps on ``device``
+    through ``make_train_step``.  ``optimizer`` defaults to the JAX
+    launcher's AdamW (warm-up 10 steps, cosine to ``steps``, no weight
+    decay).  Weights are ``params`` (moved to ``device``) or random from
+    seed 0; data is :class:`SyntheticLM` of Markov order ``data_order``.
+    Every ``ckpt_every`` steps the parameters go to ``ckpt_dir`` in the JAX
+    package's ``.npz`` layout."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.core.rad import tree_map
+    from repro_torch.data import ShardedLoader, SyntheticLM
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.models import causal_lm
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    dev = resolve_device(device)
+    log = log or slog.get_logger("train")
+    cfg = cfg.replace(max_seq=max(cfg.max_seq, seq))
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = causal_lm.init(cfg, gen)
+    else:
+        params = tree_map(lambda t: t.to(dev), params)
+    opt = optimizer or adamw(linear_warmup_cosine(lr, 10, steps),
+                             weight_decay=0.0)
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0, order=data_order)
+    loader = ShardedLoader((ds.batch(batch, i) for i in range(steps)), dev)
+
+    losses: List[float] = []
+    step_seconds: List[float] = []
+    metrics: List[dict] = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        b = next(loader)
+        params, state, m = step_fn(params, state, b)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        step_seconds.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        losses.append(metrics[-1]["loss"])
+        if i % log_every == 0:
+            log.event("train_step", step=i, loss=losses[-1],
+                      grad_norm=metrics[-1]["grad_norm"],
+                      step_s=step_seconds[-1])
+        if ckpt_dir and ckpt_every and (i + 1) % ckpt_every == 0:
+            save_checkpoint(ckpt_dir, i + 1, params,
+                            metadata={"arch": cfg.name, "mode": "gspmd"})
+    return GspmdRun(losses=losses, step_seconds=step_seconds,
+                    metrics=metrics, params=params, opt_state=state)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gpt2-xl")
     ap.add_argument("--size", choices=["smoke", "full"], default="smoke")
-    ap.add_argument("--mode", choices=["gspmd", "fusion"], default="fusion")
+    ap.add_argument("--mode", choices=["gspmd", "fusion"], default="gspmd")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -129,8 +206,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
                     help="cuda (default) or cpu")
     slog.add_logging_args(ap)
     args = ap.parse_args(argv)
-    if args.mode != "fusion":
-        ap.error("--mode gspmd is not ported to PyTorch yet; use --mode fusion")
     metrics = MetricsRegistry()
     log = slog.get_logger("train", metrics=metrics,
                           level=slog.level_from_args(args))
@@ -139,10 +214,17 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
 
     entry = resolve(args.arch)
     cfg = entry.smoke if args.size == "smoke" else entry.full
-    run = train_fusion(cfg, batch=args.batch, seq=args.seq, steps=args.steps,
-                       lr=args.lr, compress=args.compress, ratio=args.ratio,
-                       testbed=args.testbed, device=args.device, log=log,
-                       log_every=args.log_every)
+    if args.mode == "gspmd":
+        run = train_gspmd(cfg, batch=args.batch, seq=args.seq,
+                          steps=args.steps, lr=args.lr, device=args.device,
+                          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                          log=log, log_every=args.log_every)
+    else:
+        run = train_fusion(cfg, batch=args.batch, seq=args.seq,
+                           steps=args.steps, lr=args.lr,
+                           compress=args.compress, ratio=args.ratio,
+                           testbed=args.testbed, device=args.device, log=log,
+                           log_every=args.log_every)
     log.event("train_done", mode=args.mode, steps=args.steps,
               final_loss=run.losses[-1], start_loss=run.losses[0])
     return run.losses

@@ -3,14 +3,19 @@
 These feed the decentralized runtime (scheduler → RAD executor → simulator):
 * :func:`gpt_opgraph` — decoder-only transformer, one OP node per block
   (the paper's GPT-2 workload);
+* :func:`convnet_opgraph` — small CNN classifier (stand-in for the paper's
+  ResNet-101 / CIFAR-10 workload);
 * :func:`profile_opgraph` — metadata-only transformer graph (flops/bytes
   per op, no apply functions) at any scale — e.g. the full GPT2-XL — for
   the latency simulator, which never executes compute.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.core.opgraph import OpGraph, OpNode, OpType, split_generator
@@ -89,6 +94,69 @@ def _count_block_params(cfg: ModelCfg) -> int:
         + d * cfg.n_kv_heads * cfg.head_dim * 2
     mults = 3 if cfg.act in ("silu", "swiglu") else 2
     return attn_p + d * cfg.d_ff * mults + 2 * nrm
+
+
+def _same_pad(size: int, stride: int, kernel: int):
+    """XLA's ``"SAME"`` padding of one spatial axis: (low, high)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def _conv_same_s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``conv_general_dilated(x, w, (2, 2), "SAME")`` in NHWC/HWIO.  SAME
+    pads the high side first when the total is odd ((0, 1) at hw 16), so
+    the padding is explicit: ``padding=1`` would pad (1, 1)."""
+    (ht, hb), (wl, wr) = (_same_pad(x.shape[1], 2, w.shape[0]),
+                          _same_pad(x.shape[2], 2, w.shape[1]))
+    xp = F.pad(x.permute(0, 3, 1, 2), (wl, wr, ht, hb))
+    y = F.conv2d(xp, w.to(x.dtype).permute(3, 2, 0, 1), stride=2)
+    return y.permute(0, 2, 3, 1)
+
+
+def convnet_opgraph(hw: int = 16, channels: int = 3, n_classes: int = 10,
+                    widths=(16, 32, 64), dtype=torch.float32) -> OpGraph:
+    """Small CNN classifier as an OP-DAG (CV stand-in for ResNet)."""
+    g = OpGraph("convnet-opdag")
+    g.add(OpNode("images", OpType.PLACEHOLDER))
+    g.add(OpNode("labels", OpType.PLACEHOLDER))
+    prev, c_in, cur_hw = "images", channels, hw
+    for i, c_out in enumerate(widths):
+        name = f"conv_{i}"
+
+        def init_fn(gen, s, ci=c_in, co=c_out):
+            w = torch.randn((3, 3, ci, co), generator=gen, device=gen.device)
+            return {"w": (w * (1.0 / math.sqrt(9 * ci))).to(dtype),
+                    "b": torch.zeros(co, dtype=dtype, device=gen.device)}
+
+        def apply_fn(p, x):
+            return F.relu(_conv_same_s2(x, p["w"]) + p["b"])
+
+        out_hw = -(-cur_hw // 2)
+        g.add(OpNode(name, OpType.PARAMETRIC, args=(prev,),
+                     init_fn=init_fn, apply_fn=apply_fn,
+                     out_shape_fn=lambda s, oh=out_hw, co=c_out:
+                         (s[0], oh, oh, co),
+                     flops_fn=lambda s, ci=c_in, co=c_out, oh=out_hw:
+                         2.0 * s[0] * oh * oh * 9 * ci * co,
+                     n_params_fn=lambda s, ci=c_in, co=c_out:
+                         9 * ci * co + co))
+        prev, c_in, cur_hw = name, c_out, out_hw
+    g.add(OpNode("pool", OpType.NON_PARAMETRIC, args=(prev,),
+                 apply_fn=lambda p, x: torch.mean(x, dim=(1, 2)),
+                 out_shape_fn=lambda s: (s[0], s[3]),
+                 flops_fn=lambda s: float(np.prod(s))))
+    g.add(OpNode("fc", OpType.PARAMETRIC, args=("pool",),
+                 init_fn=lambda gen, s: dense_init(gen, widths[-1], n_classes,
+                                                   dtype),
+                 apply_fn=lambda p, x: dense(p, x),
+                 out_shape_fn=lambda s: (s[0], n_classes),
+                 flops_fn=lambda s: 2.0 * s[0] * widths[-1] * n_classes,
+                 n_params_fn=lambda s: widths[-1] * n_classes))
+    g.add(OpNode("loss", OpType.LOSS, args=("fc", "labels"),
+                 apply_fn=lambda p, logits, y: cross_entropy(logits, y),
+                 out_shape_fn=lambda a, b: ()))
+    return g
 
 
 def profile_opgraph(cfg: ModelCfg, batch: int, seq: int) -> OpGraph:

@@ -134,3 +134,58 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return pick(0), OptState(step=t, inner={"m": pick(1), "v": pick(2)})
 
     return Optimizer(init=init, update=update)
+
+
+# -------------------------------------------------------------- Adafactor --
+def adafactor(lr=1e-3, decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0) -> Optimizer:
+    """Factored second moment for matrices (memory-lean option for the
+    biggest configs); falls back to full accumulators on <2D leaves.
+
+    A leaf is taken whole, as in the JAX package: a stacked ``(L, d)``
+    norm scale is a matrix, so it is factored (``r`` over its last axis,
+    ``c`` over its second to last), and the update's RMS clip runs over all
+    L layers of a stacked leaf at once."""
+    sched = _as_sched(lr)
+
+    def _facts(p):
+        if p.dim() < 2:
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
+        return {"r": p.new_zeros(p.shape[:-1], dtype=torch.float32),
+                "c": p.new_zeros(p.shape[:-2] + p.shape[-1:],
+                                 dtype=torch.float32)}
+
+    def init(params):
+        return OptState(step=torch.zeros((), dtype=torch.int32),
+                        inner=tree_map(_facts, params))
+
+    def update(grads, state, params):
+        t = state.step + 1
+        lr_t = sched(state.step)
+        beta = 1.0 - (_f32(t) + 1.0) ** (-decay)
+
+        def upd(p, g, f):
+            g32 = g.to(torch.float32)
+            g2 = torch.square(g32) + eps
+            if p.dim() < 2:
+                v = beta * f["v"] + (1 - beta) * g2
+                u = g32 / torch.sqrt(v + eps)
+                nf = {"v": v}
+            else:
+                r = beta * f["r"] + (1 - beta) * torch.mean(g2, dim=-1)
+                c = beta * f["c"] + (1 - beta) * torch.mean(g2, dim=-2)
+                denom = (r[..., None] * c[..., None, :]
+                         / torch.clamp(torch.mean(r, dim=-1, keepdim=True)
+                                       [..., None], min=eps))
+                u = g32 / torch.sqrt(denom + eps)
+                nf = {"r": r, "c": c}
+            rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            return (p - lr_t * u).to(p.dtype), nf
+
+        # a parameter leaf meets its factor dict: tree_map walks params
+        out = tree_map(upd, params, grads, state.inner)
+        return (tree_map(lambda o: o[0], out),
+                OptState(step=t, inner=tree_map(lambda o: o[1], out)))
+
+    return Optimizer(init=init, update=update)

@@ -59,6 +59,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert sig.parameters["device"].default == "cuda"
     assert inspect.signature(train.train_fusion).parameters[
         "device"].default == "cuda"
+    assert inspect.signature(train.train_gspmd).parameters[
+        "device"].default == "cuda"
     cfg = resolve("gpt2-xl").smoke
     graph = gpt_opgraph(cfg, 2, 8)
     prof = graph.annotate({"tokens": (2, 8), "labels": (2, 8)})
@@ -69,6 +71,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         train.main(["--steps", "1", "--quiet"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.train_fusion(cfg, batch=2, seq=8, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train_gspmd(cfg, batch=2, seq=8, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--mode", "fusion", "--steps", "1", "--quiet"])
     DecentralizedRuntime(graph, sch, device="cpu")
     from repro_torch.elastic import ChurnTrace, ElasticController
     assert inspect.signature(ElasticController.__init__).parameters[

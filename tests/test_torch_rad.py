@@ -170,12 +170,13 @@ def test_adamw_update_matches_jax():
 
 
 def test_launcher_fusion_runs_on_cpu():
-    losses = t_train.main(["--device", "cpu", "--steps", "3",
-                           "--compress", "adatopk", "--ratio", "10",
-                           "--log-every", "100", "--quiet"])
+    losses = t_train.main(["--mode", "fusion", "--device", "cpu",
+                           "--steps", "3", "--compress", "adatopk",
+                           "--ratio", "10", "--log-every", "100", "--quiet"])
     assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
-    with pytest.raises(SystemExit):
-        t_train.main(["--mode", "gspmd", "--device", "cpu"])
+    losses = t_train.main(["--mode", "gspmd", "--device", "cpu",
+                           "--steps", "2", "--log-every", "100", "--quiet"])
+    assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
 
 
 def test_train_fusion_error_feedback_codec_calls_and_residuals(monkeypatch):
