@@ -43,23 +43,44 @@
    deserialize, the host's MemTotal, steady step seconds, and the card's
    allocation before and peak within each step, update, serialize, restore
    and migration;
-8. drives the error-feedback and dense entry points (``ef_compress``,
+8. drives the serving path — gpt2-xl at full width and depth, random
+   weights from seed 0, fp32, served the way ``repro_torch.launch.serve
+   --churn`` serves it: 3 stages over ``geo_random(8, seed=0)``, cache_len
+   64, 4 slots a replica, the launcher's 6 Poisson requests at 200 req/s
+   (prompts of 4-12 tokens, 16-32 new) — a leg with no churn (the failure
+   derivation's dry run) and a leg that kills the replica it picks, the
+   codec's counts set to 0 just before and read just after (all stay 0);
+   it checks that every session completes, that the churn leg re-routes
+   with a KV replay, that the tokens of the two legs are equal and equal a
+   monolithic greedy loop (``causal_lm.prefill`` + ``decode_step``) on the
+   card, with the staged chain's logits bit-identical to the monolithic
+   model's at every step of the first request; it prints both legs' wall
+   seconds and tokens/s, the simulated report, the peak memory, and the
+   monolithic prefill (12 tokens) and decode step (batch 1 and 4) in ms
+   (median of 20, CUDA events) beside the profiler's kernel time and the
+   byte bound;
+9. drives the error-feedback and dense entry points (``ef_compress``,
    ``ops.topk_mask``, ``ops.ef_topk``) over 5 steps with the residual
    carried, counting their launches, and holds ``ef_compress`` bit-exact
    against the EF training step's own composition on the card and against
    the CPU's plain version;
-9. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
+10. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
    versions at every (boundary shape, k a block) that the training and
    elastic paths gave them, derived from each step's plan;
-10. checks the output the repository's way: finite losses, RAD equal to
+11. checks the output the repository's way: finite losses, RAD equal to
     single-device autograd on the card at smoke size, the card's loss
     curves (plain and error-feedback) against the CPU's on the same
     weights, gpt2-smoke through ``train_gspmd`` on the card against the
-    CPU (losses within rel 1e-3), and the elastic example's smoke
+    CPU (losses within rel 1e-3), the elastic example's smoke
     configuration through a failure on the card and on the CPU (stop and
     overlap: identical epoch records and clock, losses within rel 1e-3;
     under the dense planner the run through the failure equals the run
-    without it within rel 1e-6).
+    without it within rel 1e-6), the JAX serving benchmark's ``geo``
+    profile at smoke size (llama3-8b smoke, 2 stages, 10 requests) through
+    a failure on the card and on the CPU (equal tokens, exactly equal
+    simulated reports), and the moe smoke model through 3 stages (staged
+    equal to monolithic bit for bit on the card, logits within rel 1e-5 of
+    the CPU's).
 
 Every phase raises on failure (exit code 1).  Without a CUDA device, or
 without ``src/repro_torch`` beside it, it exits with code 2 and prints no
@@ -1120,6 +1141,356 @@ def check_against_reference(dev):
     print("reference checks: " + "; ".join(report))
 
 
+SERVE_DEVICES = 8           # geo_random(8, seed=0): the simulated swarm
+SERVE_STAGES = 3            # where the JAX reference's chain stops being
+                            # bit-exact (ROADMAP Queue 3)
+SERVE_CACHE_LEN, SERVE_MAX_BATCH = 64, 4
+SERVE_REQUESTS, SERVE_RATE = 6, 200.0   # the launcher's traffic
+SERVE_LEASE = 1e-5
+SERVE_TIMING_REPS = 20
+SERVE_PROMPT = 12           # prefill length timed
+
+
+def serve_bound_ms(cfg, params, batch, tokens) -> dict:
+    """Least time of one monolithic step over ``tokens`` new tokens a
+    sequence at ``batch`` (decode: 1, prefill: the prompt) from the bytes it
+    must move — every matmul weight read once (the blocks' projections and
+    the head), the cache written once (and read once when decoding) — or
+    from its fp32 matmul operations, whichever is larger."""
+    from repro_torch.core.opgraph import tree_leaves
+    w = [params["blocks"]["attn"][k]["w"] for k in ("wq", "wk", "wv", "wo")]
+    w += [leaf for leaf in tree_leaves(params["blocks"]["mlp"])]
+    w.append(params["embed"]["table"] if cfg.tie_embeddings
+             else params["head"]["w"])
+    weight_elems = sum(t.numel() for t in w)
+    cache = (2 * cfg.n_layers * batch * SERVE_CACHE_LEN * cfg.n_kv_heads
+             * cfg.head_dim * 4)
+    nbytes = weight_elems * 4 + cache * (2 if tokens == 1 else 1)
+    ops = 2 * batch * tokens * weight_elems
+    ms = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+          "operations": 1e3 * ops / FP32_OPS_PER_S}
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by], "bound_by": by, "weight_bytes":
+            weight_elems * 4, "bytes": nbytes, "operations": ops}
+
+
+def event_times_ms(fn, reps: int = SERVE_TIMING_REPS, warmup: int = 2):
+    """Milliseconds of each of ``reps`` calls of ``fn``, CUDA events around
+    each (the span from the first enqueued kernel to the last, gaps while
+    the host enqueues included)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def device_busy_ms(fn, reps: int = 3):
+    """Summed kernel time per call of ``fn`` from the profiler's CUDA
+    activity (``None`` where it saw no device time): what the card is busy
+    for, against the call's event span."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "self_device_time_total", 0) or 0
+                for ev in prof.key_averages()
+                if getattr(ev, "device_type", None)
+                == torch.autograd.DeviceType.CUDA)
+    return total / reps / 1e3 if total else None
+
+
+def time_monolithic(cfg, params, dev) -> dict:
+    """The monolithic gpt2-xl prefill (SERVE_PROMPT tokens) and one
+    ``decode_step`` at batch 1 and at batch 4: median and spread of
+    SERVE_TIMING_REPS calls (CUDA events), the profiler's kernel time a
+    call, and the byte bound."""
+    import statistics
+
+    import torch
+    from repro_torch.models import causal_lm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    out = {}
+    for batch in (1, 4):
+        prompt = torch.randint(0, cfg.vocab, (batch, SERVE_PROMPT),
+                               generator=gen, device=dev)
+        logits, cache = causal_lm.prefill(cfg, params, prompt,
+                                          cache_len=SERVE_CACHE_LEN)
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        calls = {"decode": (lambda: causal_lm.decode_step(cfg, params, cache,
+                                                          tok), 1)}
+        if batch == 1:
+            calls["prefill"] = (lambda: causal_lm.prefill(
+                cfg, params, prompt, cache_len=SERVE_CACHE_LEN),
+                SERVE_PROMPT)
+        for name, (fn, tokens) in calls.items():
+            ms = event_times_ms(fn)
+            row = {"median_ms": statistics.median(ms), "min_ms": min(ms),
+                   "max_ms": max(ms), "reps": len(ms),
+                   "kernel_ms": device_busy_ms(fn)}
+            row.update(serve_bound_ms(cfg, params, batch, tokens))
+            out[f"{name}_b{batch}"] = row
+        del logits, cache
+    return out
+
+
+def monolithic_greedy(cfg, params, prompt, n_new, cache_len, dev,
+                      execs=None):
+    """Greedy decode of ``prompt`` for ``n_new`` tokens through the
+    monolithic ``prefill`` + ``decode_step``; returns the tokens.  With
+    ``execs`` (a chain of ``StageExecutor``s) the chain is fed the same
+    tokens and its last-position logits must be bit-identical to the
+    monolithic model's at every step."""
+    import torch
+    from repro_torch.models import causal_lm
+
+    x = torch.tensor(prompt, dtype=torch.int32, device=dev)[None, :]
+    ref, cache = causal_lm.prefill(cfg, params, x, cache_len=cache_len)
+    kvs = []
+    for ex in execs or ():
+        x, kv = ex.prefill(x)
+        kvs.append(kv)
+    tokens = []
+    for step in range(n_new):
+        if execs and not bits_equal(x, ref):
+            raise AssertionError(f"serve: staged and monolithic logits "
+                                 f"differ at step {step} of a "
+                                 f"{len(prompt)}-token prompt")
+        tokens.append(int(torch.argmax(ref[0, -1, :])))
+        if step == n_new - 1:
+            break
+        tok = torch.tensor([[tokens[-1]]], dtype=torch.int32, device=dev)
+        ref, cache = causal_lm.decode_step(cfg, params, cache, tok)
+        x = tok
+        for i, ex in enumerate(execs or ()):
+            x, kvs[i] = ex.decode(x, kvs[i], len(prompt) + step)
+    return tokens
+
+
+def run_serve_path(dev):
+    """gpt2-xl full served the way ``repro_torch.launch.serve --churn``
+    serves it: SERVE_STAGES stages over ``geo_random(8, seed=0)``, the
+    launcher's 6-request Poisson traffic; the no-churn leg is
+    ``derive_midsession_failure``'s dry run (as in the JAX serving
+    benchmark), the churn leg ``run_leg`` with the victim it picks.  The
+    codec's counts go from just before the legs to just after (serving runs
+    no codec).  Then each request's tokens are held against the monolithic
+    greedy loop on the card, the first request's with the staged chain's
+    logits bit-identical at every step, and the monolithic prefill and
+    decode are timed."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core.network import geo_random
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.launch.serve import run_leg
+    from repro_torch.models import causal_lm
+    from repro_torch.serving import (ServingCostModel, StageExecutor,
+                                     churn_trace_for,
+                                     derive_midsession_failure,
+                                     plan_serving, poisson_trace,
+                                     stage_params)
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = resolve("gpt2-xl").full
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = causal_lm.init(cfg, gen)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t_phase
+    plan = plan_serving(cfg, ServingCostModel(
+        cfg, geo_random(SERVE_DEVICES, seed=0)), list(range(SERVE_DEVICES)),
+        n_stages=SERVE_STAGES, cache_len=SERVE_CACHE_LEN,
+        max_batch=SERVE_MAX_BATCH)
+    requests = poisson_trace(SERVE_REQUESTS, rate=SERVE_RATE,
+                             vocab=cfg.vocab, prompt_len=(4, 12),
+                             gen_len=(16, 32), seed=0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    allocated = torch.cuda.memory_allocated(dev)
+
+    tk.reset_launch_counts()            # this path's counts start here
+    t0 = time.perf_counter()
+    victim, at, base, base_tokens = derive_midsession_failure(
+        cfg, params, plan, requests, SERVE_DEVICES, lease_s=SERVE_LEASE,
+        device=dev)
+    torch.cuda.synchronize(dev)
+    base_wall = time.perf_counter() - t0
+    churn_tokens = {}
+    t0 = time.perf_counter()
+    churn, _, flight = run_leg(
+        cfg, params, plan, requests, SERVE_DEVICES,
+        churn_trace_for(victim, at), SERVE_LEASE, dev,
+        on_token=lambda rid, tok, now:
+            churn_tokens.setdefault(rid, []).append(tok))
+    torch.cuda.synchronize(dev)
+    churn_wall = time.perf_counter() - t0
+    got = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    if any(got.values()):
+        raise AssertionError(f"serve: the codec ran on the serving path: "
+                             f"{got}")
+    if not (base.all_completed and churn.all_completed):
+        raise AssertionError(f"serve: sessions dropped: {base} / {churn}")
+    reroutes = [r for r in flight.records("route") if r.cause == "reroute"]
+    if base.n_reroutes or churn.n_reroutes < 1 or not reroutes \
+            or not all(r.replay_tokens > 0 for r in reroutes):
+        raise AssertionError(f"serve: expected re-routes with a KV replay "
+                             f"in the churn leg only: {base} / {churn}")
+    if churn_tokens != base_tokens:
+        raise AssertionError("serve: greedy tokens differ between the "
+                             "legs: the KV replay is not bit-exact")
+    t0 = time.perf_counter()
+    execs = [StageExecutor(cfg, spec, stage_params(cfg, params, spec),
+                           plan.cache_len, dev) for spec in plan.stages]
+    for i, req in enumerate(requests):
+        mono = monolithic_greedy(cfg, params, req.prompt, req.max_new_tokens,
+                                 plan.cache_len, dev,
+                                 execs if i == 0 else None)
+        if mono != base_tokens[req.rid]:
+            raise AssertionError(f"serve: {req.rid}: the runtime's tokens "
+                                 f"differ from the monolithic greedy loop")
+    check_s = time.perf_counter() - t0
+    del execs
+    timing = time_monolithic(cfg, params, dev)
+    n_tok = sum(len(t) for t in base_tokens.values())
+    report = {
+        "model": cfg.name, "stages": [str(s) for s in plan.stages],
+        "replicas": plan.replicas, "victim": victim, "fail_at_sim_s": at,
+        "reroutes": [r.to_dict() for r in reroutes],
+        "no_churn": {**base.to_dict(), "wall_s": base_wall,
+                     "wall_tokens_per_s": n_tok / base_wall},
+        "churn": {**churn.to_dict(), "wall_s": churn_wall,
+                  "wall_tokens_per_s": n_tok / churn_wall},
+        "allocated_before_gb": allocated / 1e9, "peak_mem_gb": peak / 1e9,
+        "init_s": init_s, "monolithic_check_s": check_s,
+        "monolithic": timing, "launches": got}
+    print("serve path: " + json.dumps(report))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve path: {len(requests)} requests, tokens equal across the "
+          f"legs and to the monolithic greedy loop, staged logits of "
+          f"{requests[0].rid} bit-identical at all {requests[0].max_new_tokens} "
+          f"steps; phase {time.perf_counter() - t_phase:.1f} s")
+    return got
+
+
+def moe_smoke_cfg():
+    """``tests/test_serving.py``'s ``moe_cfg``: 4 layers, d_model 48, 4
+    experts, top-2, tied embeddings."""
+    from repro_torch.configs.base import ModelCfg
+    return ModelCfg(name="serve-moe", family="moe", n_layers=4, d_model=48,
+                    n_heads=4, n_kv_heads=2, d_ff=64, vocab=89, n_experts=4,
+                    top_k=2, tie_embeddings=True)
+
+
+def check_serve_smoke(dev):
+    """The JAX serving benchmark's ``geo`` profile (llama3-8b smoke, GQA +
+    RoPE, ``geo_random(8, 0)``, 2 stages, 10 requests at 100 req/s) through
+    the dry run and the churn leg on the card and on the CPU from the same
+    weights: equal tokens and exactly equal simulated reports.  Then the
+    moe smoke model at 3 stages: staged equal to monolithic bit for bit on
+    the card over a prefill and 4 decode steps, and the card's logits
+    within rel 1e-5 of the CPU's (max |card - cpu| over max |cpu|)."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core.network import geo_random
+    from repro_torch.core.rad import tree_map
+    from repro_torch.launch.serve import run_leg
+    from repro_torch.models import causal_lm
+    from repro_torch.serving import (ServingCostModel, churn_trace_for,
+                                     derive_midsession_failure,
+                                     plan_serving, poisson_trace,
+                                     split_stages, stage_params,
+                                     StageExecutor)
+
+    cpu = torch.device("cpu")
+    cfg = resolve("llama3-8b").smoke
+    params = causal_lm.init(cfg, torch.Generator().manual_seed(0))
+    plan = plan_serving(cfg, ServingCostModel(cfg, geo_random(8, seed=0)),
+                        list(range(8)), n_stages=2, cache_len=64,
+                        max_batch=4)
+    requests = poisson_trace(10, rate=100.0, vocab=cfg.vocab,
+                             prompt_len=(4, 12), gen_len=(16, 32), seed=0)
+    sides = {}
+    for side, d in (("card", dev), ("cpu", cpu)):
+        p = tree_map(lambda t: t.to(d), params)
+        victim, at, base, base_tokens = derive_midsession_failure(
+            cfg, p, plan, requests, 8, lease_s=SERVE_LEASE, device=d)
+        tokens = {}
+        churn, _, _ = run_leg(cfg, p, plan, requests, 8,
+                              churn_trace_for(victim, at), SERVE_LEASE, d,
+                              on_token=lambda rid, tok, now:
+                                  tokens.setdefault(rid, []).append(tok))
+        sides[side] = (victim, at, base.to_dict(), churn.to_dict(),
+                       base_tokens, tokens)
+    if sides["card"] != sides["cpu"]:
+        raise AssertionError("serve smoke (geo): card and CPU differ")
+    victim, at, base, churn, base_tokens, tokens = sides["card"]
+    if base_tokens != tokens or churn["n_reroutes"] < 1:
+        raise AssertionError("serve smoke (geo): churn changed the tokens "
+                             "or re-routed nothing")
+
+    cfg = moe_smoke_cfg()
+    params = causal_lm.init(cfg, torch.Generator().manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab, (1, 6),
+                           generator=torch.Generator().manual_seed(1))
+    logits = {}
+    for side, d in (("card", dev), ("cpu", cpu)):
+        p = tree_map(lambda t: t.to(d), params)
+        ref, cache = causal_lm.prefill(cfg, p, prompt.to(d), cache_len=24)
+        execs = [StageExecutor(cfg, s, stage_params(cfg, p, s), 24, d)
+                 for s in split_stages(cfg, 3)]
+        x, kvs = prompt.to(d), []
+        for ex in execs:
+            x, kv = ex.prefill(x)
+            kvs.append(kv)
+        out = [ref]
+        tok = torch.argmax(ref[:, -1, :], dim=-1)[:, None]
+        for step in range(4):
+            if side == "card" and not bits_equal(x, ref):
+                raise AssertionError(f"serve smoke (moe): staged != "
+                                     f"monolithic on the card, step {step}")
+            ref, cache = causal_lm.decode_step(cfg, p, cache, tok)
+            x = tok
+            for i, ex in enumerate(execs):
+                x, kvs[i] = ex.decode(x, kvs[i], 6 + step)
+            out.append(ref)
+            tok = torch.argmax(ref[:, -1, :], dim=-1)[:, None]
+        if side == "card" and not bits_equal(x, ref):
+            raise AssertionError("serve smoke (moe): staged != monolithic "
+                                 "on the card, last step")
+        logits[side] = torch.cat([o.cpu() for o in out])
+    gap = float((logits["card"] - logits["cpu"]).abs().max()
+                / logits["cpu"].abs().max())
+    if gap > 1e-5:
+        raise AssertionError(f"serve smoke (moe): card and CPU logits differ "
+                             f"by rel {gap}")
+    print("serve smoke checks: " + json.dumps({
+        "geo": {"victim": victim, "at": at, "no_churn": base,
+                "churn": churn},
+        "moe_3_stages": {"staged_equals_monolithic_on_card": True,
+                         "max_rel_logit_gap_card_cpu": gap}}))
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
@@ -1154,6 +1525,7 @@ def main() -> int:
              for shape, k in r["codec_cases"]}
     paths["train gspmd"] = run_gspmd_path(dev)
     paths["train elastic"], elastic_cases = run_elastic_path(dev)
+    paths["serve"] = run_serve_path(dev)
     paths["entry points"] = run_entry_points(dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
     if not all(launches.values()):
@@ -1166,6 +1538,7 @@ def main() -> int:
     check_against_reference(dev)
     check_gspmd_smoke(dev)
     check_elastic_smoke(dev)
+    check_serve_smoke(dev)
 
     main_shape = timing[(BATCH, SEQ, 1600)]
     kernels = []

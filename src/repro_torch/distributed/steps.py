@@ -1,13 +1,15 @@
-"""The training step of the gspmd path, on one device.
+"""Step builders of the gspmd path, on one device.
 
-The JAX package jits this step with explicit shardings over the mesh; on
-one card it is plain autograd: ``train_loss`` -> gradients ->
-``clip_by_global_norm`` -> ``optimizer.update``.  The input specs,
-shardings and the prefill/decode builders come with ROADMAP Q1.2 and Q1.4.
+The JAX package jits these steps with explicit shardings over the mesh; on
+one card the train step is plain autograd (``train_loss`` -> gradients ->
+``clip_by_global_norm`` -> ``optimizer.update``), and the prefill and
+decode steps call ``causal_lm.prefill`` / ``decode_step`` eagerly.  The
+input specs and shardings come with ROADMAP Q1.4, the encdec family with
+Q1.3.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -18,12 +20,16 @@ from repro_torch.models import causal_lm
 from repro_torch.optim import Optimizer, clip_by_global_norm
 
 
-def loss_and_grad(cfg: ModelCfg, params, batch):
-    """(loss, metrics, grads) of ``causal_lm.train_loss`` at ``params``;
-    grads has params' key paths."""
+def _check_family(cfg: ModelCfg) -> None:
     if cfg.family == "encdec":
         raise NotImplementedError(
             f"{cfg.name}: the encdec family is not ported yet (ROADMAP Q1.3)")
+
+
+def loss_and_grad(cfg: ModelCfg, params, batch):
+    """(loss, metrics, grads) of ``causal_lm.train_loss`` at ``params``;
+    grads has params' key paths."""
+    _check_family(cfg)
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
         loss, metrics = causal_lm.train_loss(cfg, leaves, batch)
@@ -51,3 +57,27 @@ def make_train_step(cfg: ModelCfg, optimizer: Optimizer,
         return params, opt_state, out_metrics
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelCfg, cache_len: int,
+                      window: Optional[int] = None) -> Callable:
+    """``prefill_step(params, batch) -> (last-position logits, cache)``."""
+    _check_family(cfg)
+
+    def prefill_step(params, batch):
+        return causal_lm.prefill(cfg, params, batch["tokens"],
+                                 cache_len=cache_len,
+                                 prefix_embeds=batch.get("prefix_embeds"),
+                                 window=window)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelCfg, window: Optional[int] = None) -> Callable:
+    """``serve_step(params, cache, tokens) -> (logits, new cache)``: one new
+    token against the cache, which is left as it was."""
+    _check_family(cfg)
+
+    def serve_step(params, cache, tokens):
+        return causal_lm.decode_step(cfg, params, cache, tokens,
+                                     window=window)
+    return serve_step

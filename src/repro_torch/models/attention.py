@@ -1,24 +1,33 @@
-"""Grouped-query attention, training path.
+"""Grouped-query attention with train / prefill / decode paths.
 
 GQA with arbitrary (n_heads, n_kv_heads) — MHA when equal — causal or
-bidirectional masking, an optional sliding window, and RoPE where the
-config asks for it.  The cached prefill/decode paths of the JAX package
-come with the serving slice.
+bidirectional masking, an optional sliding window, RoPE where the config
+asks for it, and a KV cache for prefill (fill) and decode (one-token
+append).
 
 Layout conventions (the JAX package's): activations (B, S, d); q/k/v
-(B, S, H, hd).  Scores and softmax run in fp32.
+(B, S, H, hd); KV cache (B, S_max, H_kv, hd).  Scores and softmax run in
+fp32.  The decode path is functional, as in JAX: it returns a new cache
+(an out-of-place ``index_copy`` at ``pos``) and never writes into the
+caller's.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
 from .layers import apply_rope, dense, dense_init
 
 NEG_INF = -1e30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor     # (B, S_max, H_kv, hd)
+    v: torch.Tensor     # (B, S_max, H_kv, hd)
 
 
 def attn_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
@@ -75,7 +84,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def make_mask(Sq: int, Skv: int, causal: bool, window: Optional[int],
-              q_offset: int = 0, device="cpu") -> Optional[torch.Tensor]:
+              q_offset: int = 0, *, device) -> Optional[torch.Tensor]:
     """(1,1,Sq,Skv) boolean mask.  ``q_offset`` shifts query positions (for
     prefill continuation); ``window`` keeps keys within [pos-window+1, pos]."""
     if not causal and window is None:
@@ -109,6 +118,54 @@ def attn_train(p, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
     out = sdpa(q, k, v, mask)
     B, S = x.shape[:2]
     return dense({"w": p["wo"]["w"]}, out.reshape(B, S, n_heads * head_dim))
+
+
+def attn_prefill(p, x: torch.Tensor, *, n_heads: int, n_kv: int,
+                 head_dim: int, cache_len: int, window: Optional[int] = None,
+                 rope_fraction: float = 1.0, rope_theta: float = 10_000.0
+                 ) -> Tuple[torch.Tensor, KVCache]:
+    """Causal attention over the prompt, emitting a KV cache of cache_len
+    (>= S; right-padded with zeros)."""
+    B, S = x.shape[:2]
+    q, k, v = _project_qkv(p, x, x, n_heads, n_kv, head_dim)
+    if rope_fraction > 0:
+        pos = torch.arange(S, device=x.device)[None]
+        q = apply_rope(q, pos, rope_fraction, rope_theta)
+        k = apply_rope(k, pos, rope_fraction, rope_theta)
+    mask = make_mask(S, S, True, window, device=x.device)
+    out = sdpa(q, k, v, mask)
+    pad = (0, 0, 0, 0, 0, cache_len - S)     # the sequence axis, at the end
+    cache = KVCache(k=F.pad(k, pad), v=F.pad(v, pad))
+    return (dense({"w": p["wo"]["w"]}, out.reshape(B, S, n_heads * head_dim)),
+            cache)
+
+
+def attn_decode(p, x: torch.Tensor, cache: KVCache, pos: torch.Tensor, *,
+                n_heads: int, n_kv: int, head_dim: int,
+                window: Optional[int] = None,
+                rope_fraction: float = 1.0, rope_theta: float = 10_000.0
+                ) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode.  x: (B, 1, d); ``pos`` a 0-d int32 tensor on the
+    cache's device — the index of this token; the cache holds positions
+    [0, pos).  The mask and the write position come from ``pos`` on the
+    device, so a step reads nothing back to the host."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, x, x, n_heads, n_kv, head_dim)
+    if rope_fraction > 0:
+        pvec = pos.reshape(1, 1)
+        q = apply_rope(q, pvec, rope_fraction, rope_theta)
+        k = apply_rope(k, pvec, rope_fraction, rope_theta)
+    at = pos.reshape(1).to(torch.int64)
+    new_k = cache.k.index_copy(1, at, k.to(cache.k.dtype))
+    new_v = cache.v.index_copy(1, at, v.to(cache.v.dtype))
+    kpos = torch.arange(new_k.shape[1], device=x.device)
+    valid = kpos <= pos
+    if window is not None:
+        valid &= kpos > pos - window
+    mask = valid[None, None, None, :]      # (1,1,1,S_max)
+    out = sdpa(q, new_k.to(q.dtype), new_v.to(q.dtype), mask)
+    y = dense({"w": p["wo"]["w"]}, out.reshape(B, 1, n_heads * head_dim))
+    return y, KVCache(k=new_k, v=new_v)
 
 
 def attn_flops(tokens: int, kv_tokens: int, d: int, n_heads: int, n_kv: int,

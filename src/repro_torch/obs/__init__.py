@@ -1,7 +1,11 @@
 """Observability for the port: span tracing, metrics, structured logging,
-the elastic controller's flight recorder, the telemetry bus and the
-watchdog (stdlib only, no-ops when disabled)."""
+the elastic controller's flight recorder, the telemetry bus, the watchdog
+and the trace export (Chrome/Perfetto JSON, JSONL) — stdlib only, no-ops
+when disabled."""
 from .bus import MetricsTelemetrySink, TelemetryBus
+from .export import (events_from_dicts, read_header, read_jsonl,
+                     surface_drops, to_trace_events, validate_trace_events,
+                     write_chrome_trace, write_jsonl)
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .record import (CalibrationRecord, CandidateScore, DetectorRecord,
                      EpochFlightRecord, FlightRecorder, ReplanRecord,
@@ -22,5 +26,7 @@ __all__ = [
     "Gauge", "Histogram", "MetricsRegistry", "MetricsTelemetrySink",
     "ReplanRecord", "RouteRecord", "StructuredLogger", "TelemetryBus",
     "TraceEvent", "TraceRecorder", "Watchdog", "WatchdogRecord",
-    "add_logging_args", "get_logger",
+    "add_logging_args", "events_from_dicts", "get_logger", "read_header",
+    "read_jsonl", "surface_drops", "to_trace_events", "validate_trace_events",
+    "write_chrome_trace", "write_jsonl",
 ]

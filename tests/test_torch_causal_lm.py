@@ -101,10 +101,13 @@ def test_count_params_moe_arithmetic_and_unported_families():
               top_k=2, n_shared_experts=1, qkv_bias=True)
     assert t_lm.count_params(TModelCfg(**kw)) == \
         j_lm.count_params(JModelCfg(**kw))
-    for cfg in (TModelCfg(**kw),
-                TModelCfg(name="hy", family="hybrid", n_layers=4, d_model=64,
+    # the moe block is ported (ROADMAP Q1.2): its count is what init draws
+    moe = t_lm.init(TModelCfg(**kw), torch.Generator().manual_seed(0))
+    assert sum(t.numel() for t in tree_leaves(moe)) == \
+        t_lm.count_params(TModelCfg(**kw))
+    for cfg in (TModelCfg(name="hy", family="hybrid", n_layers=4, d_model=64,
                           n_heads=4, n_kv_heads=4, d_ff=0, vocab=64,
-                          attn_every=2)):
+                          attn_every=2),):
         with pytest.raises(NotImplementedError, match="ROADMAP Q1"):
             t_lm.segments(cfg)
         with pytest.raises(NotImplementedError, match="ROADMAP Q1"):

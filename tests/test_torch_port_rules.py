@@ -96,3 +96,40 @@ def test_cuda_wrappers_refuse_other_devices():
         tk.decode_topk(torch.ones(1, 4, device="meta"),
                        torch.zeros(1, 128, dtype=torch.int32, device="meta"),
                        (64,))
+
+
+def test_serving_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs.base import ModelCfg
+    from repro_torch.core.network import homogeneous_lan
+    from repro_torch.elastic import ChurnTrace, MembershipView
+    from repro_torch.launch import serve
+    from repro_torch.models import causal_lm
+    from repro_torch.serving import (ServingCostModel, ServingRuntime,
+                                     StageExecutor, derive_midsession_failure,
+                                     plan_serving, poisson_trace,
+                                     split_stages, stage_params)
+
+    for fn in (ServingRuntime.__init__, StageExecutor.__init__,
+               derive_midsession_failure):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert serve.build_parser().parse_args([]).device == "cuda"
+    cfg = ModelCfg(name="t", family="dense", n_layers=2, d_model=16,
+                   n_heads=2, n_kv_heads=2, d_ff=32, vocab=31)
+    params = causal_lm.init(cfg, torch.Generator().manual_seed(0))
+    plan = plan_serving(cfg, ServingCostModel(cfg, homogeneous_lan(2)),
+                        [0, 1], n_stages=2, cache_len=16)
+    spec = split_stages(cfg, 2)[0]
+    reqs = poisson_trace(2, 100.0, cfg.vocab, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StageExecutor(cfg, spec, stage_params(cfg, params, spec), 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingRuntime(cfg, params, plan, MembershipView(2, ChurnTrace(())))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        derive_midsession_failure(cfg, params, plan, reqs, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--quiet"])
+    with pytest.raises(TypeError):
+        causal_lm.cache_init(cfg, 1, 8)     # the caller names the device
+    StageExecutor(cfg, spec, stage_params(cfg, params, spec), 16, "cpu")
