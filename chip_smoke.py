@@ -59,15 +59,30 @@
    monolithic prefill (12 tokens) and decode step (batch 1 and 4) in ms
    (median of 20, CUDA events) beside the profiler's kernel time and the
    byte bound;
-9. drives the error-feedback and dense entry points (``ef_compress``,
+9. drives the hybrid family's serving path — zamba2-7b at full width and
+   depth (81 layers: 13 groups of 6 Mamba2 blocks, each followed by one of
+   2 alternating shared attention + MLP blocks, then 3 Mamba2 blocks;
+   random weights from seed 0, fp32) through ``steps.make_prefill_step`` /
+   ``make_decode_step``, the JAX package's entry points for a family it
+   never stage-shards: a 128-token prompt (one SSD chunk) at batch 1 and
+   128 greedy tokens against a cache of 512, the codec's counts set to 0
+   just before and read just after (all stay 0); it holds the decoded
+   logits against a teacher-forced ``causal_lm.forward`` over the 256
+   tokens (within 1e-3 of the largest |logit|, and the same argmax
+   wherever the forward's top-2 margin is over 10 times the gap), holds
+   ``ssd_chunked`` against ``ssd_reference`` at the full head shape, and
+   prints the decode step (batch 1 and 4) and the prefill (128 and 512
+   tokens) in ms (median of 20, CUDA events) beside the profiler's kernel
+   time and the bound, and the peak memory;
+10. drives the error-feedback and dense entry points (``ef_compress``,
    ``ops.topk_mask``, ``ops.ef_topk``) over 5 steps with the residual
    carried, counting their launches, and holds ``ef_compress`` bit-exact
    against the EF training step's own composition on the card and against
    the CPU's plain version;
-10. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
+11. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
    versions at every (boundary shape, k a block) that the training and
    elastic paths gave them, derived from each step's plan;
-11. checks the output the repository's way: finite losses, RAD equal to
+12. checks the output the repository's way: finite losses, RAD equal to
     single-device autograd on the card at smoke size, the card's loss
     curves (plain and error-feedback) against the CPU's on the same
     weights, gpt2-smoke through ``train_gspmd`` on the card against the
@@ -80,7 +95,8 @@
     a failure on the card and on the CPU (equal tokens, exactly equal
     simulated reports), and the moe smoke model through 3 stages (staged
     equal to monolithic bit for bit on the card, logits within rel 1e-5 of
-    the CPU's).
+    the CPU's), and zamba2-smoke on the card against the CPU (a prefill, 4
+    decode steps, the forward and the loss within rel 1e-5).
 
 Every phase raises on failure (exit code 1).  Without a CUDA device, or
 without ``src/repro_torch`` beside it, it exits with code 2 and prints no
@@ -1491,6 +1507,295 @@ def check_serve_smoke(dev):
                          "max_rel_logit_gap_card_cpu": gap}}))
 
 
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_CACHE_LEN = 512
+HYBRID_PROMPT = 128         # one SSD chunk: prompts are multiples of 128
+HYBRID_NEW = 128            # greedy decode steps
+HYBRID_GAP = 1e-3           # decode vs forward logits, rel to max |logit|
+HYBRID_PREFILLS = (128, 512)
+HYBRID_SMOKE_GAP = 1e-5     # zamba2-smoke, card vs CPU, rel
+# ssd_chunked vs the literal recurrence, rel to max |y|: the chunked form
+# takes exp of differences of cumulative log-decays that reach a few
+# hundred over a 128-token chunk here, so fp32 leaves ~1e-5 (7.9e-6 on
+# the CPU; the JAX package's own test holds it at atol 1e-4 on unit-scale
+# inputs)
+SSD_GAP = 1e-4
+
+
+def hybrid_bound_ms(cfg, batch, tokens, cache_len, kv_len) -> dict:
+    """Least time of one zamba2 call over ``tokens`` new tokens a sequence
+    at ``batch`` (decode: 1 against ``kv_len`` cached positions, prefill:
+    the prompt) from the config: the bytes it must move — every weight read
+    once per use (each Mamba2 layer; the shared block once for each group
+    that runs it; the head), the Mamba2 states and the shared blocks' KV
+    cache of ``cache_len`` written once (and read once when decoding), the
+    logits written — or its fp32 operations (matmuls, conv, SSD, attention
+    scores), whichever is larger."""
+    from repro_torch.models import causal_lm, ssm
+
+    mc = causal_lm._mamba_cfg(cfg)
+    d, V = cfg.d_model, cfg.vocab_padded
+    segs = causal_lm.segments(cfg)
+    n_mamba = sum(s.count * (s.inner or 1) for s in segs)
+    n_groups = sum(s.count for s in segs if s.kind == "zamba_group")
+    di, ds, nh, hd = mc.d_inner, mc.d_state, mc.n_heads, mc.head_dim
+    conv_ch = di + 2 * ds
+    mamba_w = (d * (2 * di + 2 * ds + nh) + di * d      # in_proj, out_proj
+               + conv_ch * (mc.conv_width + 1) + 3 * nh + di + d)
+    qkvo = d * cfg.head_dim * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    mlp_w = d * cfg.d_ff * 3
+    shared_w = qkvo + mlp_w + 2 * d
+    weights = {"mamba": n_mamba * mamba_w, "shared": n_groups * shared_w,
+               "head": d * V}
+    state = n_mamba * batch * (nh * ds * hd + (mc.conv_width - 1) * conv_ch)
+    kv = n_groups * 2 * batch * cache_len * cfg.n_kv_heads * cfg.head_dim
+    nbytes = 4 * (sum(weights.values()) + batch * tokens * d
+                  + (state + kv) * (2 if tokens == 1 else 1) + batch * V)
+    T = batch * tokens
+    if tokens == 1:     # the recurrence: the chunked form's chunks of one
+        mamba_ops = ssm.mamba_flops(T, mc._replace(chunk=1))
+        scores = 4 * batch * kv_len * cfg.n_heads * cfg.head_dim
+    else:
+        mamba_ops = ssm.mamba_flops(T, mc)
+        scores = 4 * batch * (tokens * (tokens + 1) // 2) * cfg.n_heads \
+            * cfg.head_dim
+    ops = (n_mamba * mamba_ops
+           + n_groups * (2 * T * (qkvo + mlp_w) + scores)
+           + 2 * batch * d * V)                         # head: last position
+    ms = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+          "operations": 1e3 * ops / FP32_OPS_PER_S}
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by], "bound_by": by,
+            "weight_bytes_per_use": {k: 4 * v for k, v in weights.items()},
+            "bytes": nbytes, "operations": ops}
+
+
+def time_hybrid(cfg, params, dev) -> dict:
+    """zamba2 full through the step builders: ``decode_step`` at batch 1
+    and 4 (against a cache from a HYBRID_PROMPT-token prefill) and the
+    prefill of each of HYBRID_PREFILLS tokens at batch 1: median and spread
+    of SERVE_TIMING_REPS calls (CUDA events), the profiler's kernel time a
+    call (one call profiled: a step makes ~7,000 host calls), and the
+    bound."""
+    import statistics
+
+    import torch
+    from repro_torch.distributed.steps import (make_decode_step,
+                                               make_prefill_step)
+
+    prefill = make_prefill_step(cfg, cache_len=HYBRID_CACHE_LEN)
+    decode = make_decode_step(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+
+    def row(fn, batch, tokens, kv_len):
+        ms = event_times_ms(fn)
+        out = {"median_ms": statistics.median(ms), "min_ms": min(ms),
+               "max_ms": max(ms), "reps": len(ms),
+               "kernel_ms": device_busy_ms(fn, reps=1)}
+        out.update(hybrid_bound_ms(cfg, batch, tokens, HYBRID_CACHE_LEN,
+                                   kv_len))
+        return out
+
+    out = {}
+    for batch in (1, 4):
+        prompt = torch.randint(0, cfg.vocab, (batch, HYBRID_PROMPT),
+                               generator=gen, device=dev)
+        logits, cache = prefill(params, {"tokens": prompt})
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        out[f"decode_b{batch}"] = row(lambda: decode(params, cache, tok),
+                                      batch, 1, HYBRID_PROMPT + 1)
+        del logits, cache
+    for S in HYBRID_PREFILLS:
+        prompt = torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                               device=dev)
+        out[f"prefill_{S}_b1"] = row(
+            lambda: prefill(params, {"tokens": prompt}), 1, S, 0)
+    return out
+
+
+def check_ssd_full_heads(cfg, dev) -> float:
+    """``ssd_chunked`` against ``ssd_reference`` on the card at the config's
+    full head shape (S = 2 chunks); returns max |chunked - reference| over
+    max |reference|."""
+    import torch
+    from repro_torch.models import causal_lm, ssm
+
+    mc = causal_lm._mamba_cfg(cfg)
+    S = 2 * mc.chunk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rnd = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                     device=dev)
+    x, dt = rnd(1, S, mc.n_heads, mc.head_dim), ssm.softplus(
+        rnd(1, S, mc.n_heads) - 2.0)
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, mc.n_heads,
+                                            device=dev)))
+    Bm, Cm, D = rnd(1, S, mc.d_state), rnd(1, S, mc.d_state), rnd(mc.n_heads)
+    y, _ = ssm.ssd_chunked(x, dt, A, Bm, Cm, D, mc.chunk)
+    ref = ssm.ssd_reference(x, dt, A, Bm, Cm, D)
+    return float((y - ref).abs().max() / ref.abs().max())
+
+
+def run_hybrid_serve_path(dev):
+    """zamba2-7b full (81 layers, d_model 3584; random weights from seed 0,
+    fp32) served through ``steps.make_prefill_step`` / ``make_decode_step``
+    — the JAX package's serving entry points for a recurrent family, which
+    it never stage-shards: a HYBRID_PROMPT-token prompt at batch 1, then
+    HYBRID_NEW greedy tokens, the codec's counts set to 0 just before and
+    read just after (serving runs no codec).  A teacher-forced
+    ``causal_lm.forward`` over the same tokens holds the decoded logits
+    (within HYBRID_GAP of the largest |logit|, and the same argmax wherever
+    the forward's top-2 margin is over 10 times the gap); ``ssd_chunked``
+    is held against ``ssd_reference`` at the full head shape; the decode
+    step and the prefill are timed beside their bound."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.distributed.steps import (make_decode_step,
+                                               make_prefill_step)
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.models import causal_lm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = resolve(HYBRID_ARCH).full
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = causal_lm.init(cfg, gen)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t_phase
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != causal_lm.count_params(cfg):
+        raise AssertionError(f"serve hybrid: init drew {n_params} "
+                             f"parameters, count_params says "
+                             f"{causal_lm.count_params(cfg)}")
+    prefill = make_prefill_step(cfg, cache_len=HYBRID_CACHE_LEN)
+    decode = make_decode_step(cfg)
+    prompt = torch.randint(0, cfg.vocab, (1, HYBRID_PROMPT), generator=gen,
+                           device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    allocated = torch.cuda.memory_allocated(dev)
+
+    tk.reset_launch_counts()            # this path's counts start here
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompt})
+    tokens, decoded = [], []
+    for _ in range(HYBRID_NEW):
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        tokens.append(tok)
+        logits, cache = decode(params, cache, tok)
+        decoded.append(logits[:, -1, :])
+    torch.cuda.synchronize(dev)
+    serve_s = time.perf_counter() - t0
+    got = launch_counts()
+    if any(got.values()):
+        raise AssertionError(f"serve hybrid: the codec ran on the serving "
+                             f"path: {got}")
+    if int(cache["pos"]) != HYBRID_PROMPT + HYBRID_NEW:
+        raise AssertionError(f"serve hybrid: cache at {int(cache['pos'])}")
+    del cache
+
+    seq = torch.cat([prompt] + tokens, dim=1)           # 256 tokens
+    with torch.inference_mode():
+        full, _ = causal_lm.forward(cfg, params, seq)
+    # the decoded positions, over the true vocabulary (not the -1e30 pad)
+    ref = full[0, HYBRID_PROMPT:, :cfg.vocab]
+    got_logits = torch.cat(decoded)[:, :cfg.vocab]
+    if not (torch.isfinite(got_logits).all() and torch.isfinite(ref).all()):
+        raise AssertionError("serve hybrid: non-finite logits")
+    gap_abs = float((got_logits - ref).abs().max())
+    gap = gap_abs / float(ref.abs().max())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 10 * gap_abs
+    same = torch.argmax(got_logits, -1) == torch.argmax(ref, -1)
+    n_clear = int(clear.sum())
+    if gap > HYBRID_GAP or not bool(same[clear].all()):
+        raise AssertionError(
+            f"serve hybrid: decode vs forward rel gap {gap:.3e} (limit "
+            f"{HYBRID_GAP}); argmax differs at "
+            f"{int((~same & clear).sum())} of {n_clear} clear positions")
+    del full, ref, got_logits
+    ssd_gap = check_ssd_full_heads(cfg, dev)
+    if ssd_gap > SSD_GAP:
+        raise AssertionError(f"serve hybrid: ssd_chunked vs ssd_reference "
+                             f"rel {ssd_gap:.3e} at the full head shape")
+    timing = time_hybrid(cfg, params, dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    report = {
+        "model": cfg.name, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "params": n_params,
+        "segments": [s._asdict() for s in causal_lm.segments(cfg)],
+        "cache_len": HYBRID_CACHE_LEN, "prompt": HYBRID_PROMPT,
+        "new_tokens": HYBRID_NEW, "serve_s": serve_s,
+        "tokens_per_s": HYBRID_NEW / serve_s,
+        "decode_vs_forward": {
+            "max_abs_gap": gap_abs, "rel_gap": gap,
+            "clear_positions": n_clear,
+            # positions (after the prompt) whose argmax differs, each with
+            # the forward's top-2 margin: all below 10 times the gap
+            "argmax_differs": [[i, float(top2[i, 0] - top2[i, 1])]
+                               for i in torch.nonzero(~same).flatten()
+                               .tolist()]},
+        "ssd_chunked_vs_reference_rel": ssd_gap,
+        "allocated_before_gb": allocated / 1e9, "peak_mem_gb": peak / 1e9,
+        "init_s": init_s, "timing": timing, "launches": got}
+    print("serve hybrid path: " + json.dumps(report))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve hybrid path: {HYBRID_NEW} greedy tokens, decode vs forward "
+          f"rel gap {gap:.2e}, argmax equal at {n_clear} clear positions; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return got
+
+
+def check_hybrid_smoke(dev):
+    """zamba2-smoke with the same weights on the card and on the CPU: a
+    prefill and 4 decode steps (both fed the CPU's greedy tokens), the
+    forward and ``train_loss``; the largest gap relative to the CPU's
+    largest |value| must stay within HYBRID_SMOKE_GAP."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core.rad import tree_map
+    from repro_torch.models import causal_lm
+
+    cpu = torch.device("cpu")
+    cfg = resolve(HYBRID_ARCH).smoke
+    params = causal_lm.init(cfg, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 3 * cfg.ssm_chunk + 1),
+                         generator=torch.Generator().manual_seed(1))
+    S0 = 2 * cfg.ssm_chunk
+    out = {}
+    feed = None
+    for side, d in (("cpu", cpu), ("card", dev)):
+        p = tree_map(lambda t: t.to(d), params)
+        logits, cache = causal_lm.prefill(cfg, p, toks[:, :S0].to(d),
+                                          cache_len=S0 + 8)
+        steps = [logits]
+        fed = []
+        for i in range(4):
+            tok = (torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+                   if feed is None else feed[i].to(d))
+            fed.append(tok.cpu())
+            logits, cache = causal_lm.decode_step(cfg, p, cache, tok)
+            steps.append(logits)
+        feed = fed
+        batch = {"tokens": toks[:, :-1].to(d), "labels": toks[:, 1:].to(d)}
+        fwd, _ = causal_lm.forward(cfg, p, batch["tokens"])
+        loss, _ = causal_lm.train_loss(cfg, p, batch)
+        out[side] = (torch.cat([s.cpu() for s in steps], dim=1), fwd.cpu(),
+                     loss.cpu())
+    gaps = {name: float((a - b).abs().max() / b.abs().max())
+            for name, a, b in zip(("decode", "forward", "loss"),
+                                  out["card"], out["cpu"])}
+    if max(gaps.values()) > HYBRID_SMOKE_GAP:
+        raise AssertionError(f"hybrid smoke: card and CPU differ: {gaps}")
+    print("hybrid smoke checks: " + json.dumps(
+        {"model": cfg.name, "max_rel_gap_card_cpu": gaps}))
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
@@ -1526,6 +1831,7 @@ def main() -> int:
     paths["train gspmd"] = run_gspmd_path(dev)
     paths["train elastic"], elastic_cases = run_elastic_path(dev)
     paths["serve"] = run_serve_path(dev)
+    paths["serve hybrid"] = run_hybrid_serve_path(dev)
     paths["entry points"] = run_entry_points(dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
     if not all(launches.values()):
@@ -1539,6 +1845,7 @@ def main() -> int:
     check_gspmd_smoke(dev)
     check_elastic_smoke(dev)
     check_serve_smoke(dev)
+    check_hybrid_smoke(dev)
 
     main_shape = timing[(BATCH, SEQ, 1600)]
     kernels = []

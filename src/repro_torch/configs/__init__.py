@@ -1,19 +1,23 @@
 """Architecture configs.  ``load_all()`` imports every per-arch module so the
 registry is populated; ``repro_torch.configs.base.get_arch`` is the public
-lookup.  Ported so far: gpt2-xl (the training path's model) and the dense
-and vlm configs whose blocks the port has; the MoE, hybrid, xLSTM and
-enc-dec configs come with ROADMAP Q1.3."""
+lookup.  Ported so far: every config whose blocks the port has (dense, vlm,
+moe and hybrid); the xLSTM and enc-dec configs come with ROADMAP Q1.3b and
+Q1.3c."""
 from .base import (ArchEntry, InputShape, INPUT_SHAPES, ModelCfg, REGISTRY,
                    get_arch, register)
 
 _LOADED = False
 
-ARCH_IDS = ["mistral-nemo-12b", "llama3-8b", "stablelm-12b", "internvl2-2b",
+ARCH_IDS = ["zamba2-7b", "deepseek-moe-16b", "mistral-nemo-12b",
+            "llama3-8b", "mixtral-8x7b", "stablelm-12b", "internvl2-2b",
             "granite-3-8b", "gpt2-xl"]
 
 _MODULES = {
+    "zamba2-7b": "zamba2_7b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "llama3-8b": "llama3_8b",
+    "mixtral-8x7b": "mixtral_8x7b",
     "stablelm-12b": "stablelm_12b",
     "internvl2-2b": "internvl2_2b",
     "granite-3-8b": "granite_3_8b",

@@ -3,9 +3,10 @@
 The JAX package jits these steps with explicit shardings over the mesh; on
 one card the train step is plain autograd (``train_loss`` -> gradients ->
 ``clip_by_global_norm`` -> ``optimizer.update``), and the prefill and
-decode steps call ``causal_lm.prefill`` / ``decode_step`` eagerly.  The
-input specs and shardings come with ROADMAP Q1.4, the encdec family with
-Q1.3.
+decode steps call ``causal_lm.prefill`` / ``decode_step`` eagerly, for
+every family ``causal_lm`` has (the hybrid included: it is served this way,
+never stage-sharded).  The input specs and shardings come with ROADMAP
+Q1.4, the encdec family with Q1.3c.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro_torch.optim import Optimizer, clip_by_global_norm
 def _check_family(cfg: ModelCfg) -> None:
     if cfg.family == "encdec":
         raise NotImplementedError(
-            f"{cfg.name}: the encdec family is not ported yet (ROADMAP Q1.3)")
+            f"{cfg.name}: the encdec family is not ported yet (ROADMAP Q1.3c)")
 
 
 def loss_and_grad(cfg: ModelCfg, params, batch):

@@ -1,21 +1,25 @@
-"""Decoder-only causal LM: the dense, moe and vlm families.
+"""Decoder-only causal LM: the dense, moe, hybrid and vlm families.
 
-* ``dense`` — (GQA + SwiGLU/GELU) × L (llama3, mistral-nemo, stablelm,
+* ``dense``  — (GQA + SwiGLU/GELU) × L (llama3, mistral-nemo, stablelm,
   granite, gpt2);
-* ``moe``   — (GQA + MoE) × L (mixtral, deepseek-moe);
-* ``vlm``   — the dense LM consuming stub patch embeddings (internvl2).
+* ``moe``    — (GQA + MoE) × L (mixtral, deepseek-moe);
+* ``hybrid`` — Mamba2 × L with alternating shared attention + MLP blocks
+  (zamba2): groups of ``attn_every`` Mamba2 blocks, each followed by shared
+  block ``g % n_shared_attn``, then a tail of Mamba2 blocks;
+* ``vlm``    — the dense LM consuming stub patch embeddings (internvl2).
 
-The blocks' parameters are stacked on a leading axis of ``n_layers``, as
-in the JAX package, so the two packages' trees have the same key paths and
-shapes; :func:`repro_torch.models.scan_config.scan` runs them in a loop.
-The hybrid and xLSTM families come with ROADMAP Q1.3.
+The blocks' parameters are stacked on a leading axis (two for the hybrid
+groups: ``(groups, attn_every, ...)``), as in the JAX package, so the two
+packages' trees have the same key paths and shapes;
+:func:`repro_torch.models.scan_config.scan` runs them in a loop.  The
+xLSTM family comes with ROADMAP Q1.3b.
 
 Entry points:
   ``init``          params (blocks stacked per segment)
   ``forward``       full-sequence logits and the auxiliary loss
   ``train_loss``    teacher-forced loss (the gspmd training step's)
   ``cache_init``    empty decode caches
-  ``prefill``       prompt forward -> last-position logits + KV cache
+  ``prefill``       prompt forward -> last-position logits + cache
   ``decode_step``   one token against a cache
   ``count_params``  analytic parameter count
 
@@ -38,16 +42,17 @@ from repro_torch.core.opgraph import split_generator
 from repro_torch.core.rad import tree_map
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm
 from .layers import (cross_entropy, dense, dense_init, embed, embed_init,
                      mlp, mlp_init, norm_apply, norm_init)
-from .scan_config import scan
+from .scan_config import scan, unstack
 
-_NOT_PORTED = {"hybrid": "ROADMAP Q1.3", "xlstm": "ROADMAP Q1.3"}
+_NOT_PORTED = {"xlstm": "ROADMAP Q1.3b"}
 
 
 class Segment(NamedTuple):
     name: str       # params/cache key
-    kind: str       # dense | moe (the kinds ported)
+    kind: str       # dense | moe | mamba | zamba_group (the kinds ported)
     count: int      # scan trip count
     inner: int = 0  # inner layers per trip (grouped kinds)
 
@@ -57,6 +62,12 @@ def segments(cfg: ModelCfg) -> List[Segment]:
         return [Segment("blocks", "dense", cfg.n_layers)]
     if cfg.family == "moe":
         return [Segment("blocks", "moe", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        g, rem = divmod(cfg.n_layers, cfg.attn_every)
+        segs = [Segment("groups", "zamba_group", g, cfg.attn_every)]
+        if rem:
+            segs.append(Segment("tail", "mamba", rem))
+        return segs
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
@@ -64,33 +75,69 @@ def segments(cfg: ModelCfg) -> List[Segment]:
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
+def _mamba_cfg(cfg: ModelCfg) -> ssm.MambaCfg:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return ssm.MambaCfg(d_model=cfg.d_model, d_inner=d_inner,
+                        n_heads=d_inner // cfg.ssm_head_dim,
+                        head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
+                        chunk=cfg.ssm_chunk)
+
+
 # ==================================================================== init ==
+def _norm(cfg: ModelCfg, dev):
+    return norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, device=dev)
+
+
 def _dense_block_init(gen, cfg: ModelCfg):
     g1, g2 = split_generator(gen, 2)
-    dev = gen.device
-    return {"ln1": norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev),
+    return {"ln1": _norm(cfg, gen.device),
             "attn": attn.attn_init(g1, cfg.d_model, cfg.n_heads,
                                    cfg.n_kv_heads, cfg.head_dim,
                                    cfg.param_dtype, cfg.qkv_bias),
-            "ln2": norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev),
+            "ln2": _norm(cfg, gen.device),
             "mlp": mlp_init(g2, cfg.d_model, cfg.d_ff, cfg.act,
                             cfg.param_dtype)}
 
 
 def _moe_block_init(gen, cfg: ModelCfg):
     g1, g2 = split_generator(gen, 2)
-    dev = gen.device
-    return {"ln1": norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev),
+    return {"ln1": _norm(cfg, gen.device),
             "attn": attn.attn_init(g1, cfg.d_model, cfg.n_heads,
                                    cfg.n_kv_heads, cfg.head_dim,
                                    cfg.param_dtype, cfg.qkv_bias),
-            "ln2": norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev),
+            "ln2": _norm(cfg, gen.device),
             "moe": moe_mod.moe_init(g2, cfg.d_model, cfg.d_ff, cfg.n_experts,
                                     cfg.n_shared_experts,
                                     dtype=cfg.param_dtype)}
 
 
-_BLOCK_INIT = {"dense": _dense_block_init, "moe": _moe_block_init}
+def _mamba_block_init(gen, cfg: ModelCfg):
+    return {"ln": _norm(cfg, gen.device),
+            "mamba": ssm.mamba_init(gen, _mamba_cfg(cfg), cfg.param_dtype)}
+
+
+def _zamba_group_init(gen, cfg: ModelCfg):
+    return _stack_init(lambda r: _mamba_block_init(r, cfg), gen,
+                       cfg.attn_every)
+
+
+def _shared_attn_init(gen, cfg: ModelCfg):
+    """Zamba2 shared transformer block: attention + MLP (the assigned
+    d_ff=14336 lives here), weights reused across invocations."""
+    g1, g2 = split_generator(gen, 2)
+    p = {"ln": _norm(cfg, gen.device),
+         "attn": attn.attn_init(g1, cfg.d_model, cfg.n_heads,
+                                cfg.n_kv_heads, cfg.head_dim,
+                                cfg.param_dtype)}
+    if cfg.d_ff > 0:
+        p["ln2"] = _norm(cfg, gen.device)
+        p["mlp"] = mlp_init(g2, cfg.d_model, cfg.d_ff, cfg.act,
+                            cfg.param_dtype)
+    return p
+
+
+_BLOCK_INIT = {"dense": _dense_block_init, "moe": _moe_block_init,
+               "mamba": _mamba_block_init, "zamba_group": _zamba_group_init}
 
 
 def _stack_init(init_fn, gen: torch.Generator, n: int):
@@ -112,11 +159,10 @@ def init(cfg: ModelCfg, gen: torch.Generator) -> Dict[str, Any]:
     paths and shapes (the values differ: torch cannot draw ``jax.random``'s
     numbers; carry JAX's weights with ``from_numpy_tree`` to compare)."""
     ks = split_generator(gen, 8)
-    dev = gen.device
     params: Dict[str, Any] = {
         "embed": embed_init(ks[0], cfg.vocab_padded, cfg.d_model,
                             cfg.param_dtype),
-        "final_norm": norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev),
+        "final_norm": _norm(cfg, gen.device),
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(ks[1], cfg.d_model, cfg.vocab_padded,
@@ -131,21 +177,47 @@ def init(cfg: ModelCfg, gen: torch.Generator) -> Dict[str, Any]:
     for seg, g in zip(segs, split_generator(ks[4], len(segs))):
         params[seg.name] = _stack_init(
             lambda r: _BLOCK_INIT[seg.kind](r, cfg), g, seg.count)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _stack_init(
+            lambda r: _shared_attn_init(r, cfg), ks[5],
+            max(cfg.n_shared_attn, 1))
     return params
 
 
 # ================================================================ caches ==
 def cache_init(cfg: ModelCfg, batch: int, cache_len: int, dtype=None, *,
                device) -> Dict[str, Any]:
-    """Empty decode caches on ``device``: ``pos`` (0-d int32) and each
-    segment's stacked ``{"k", "v"}: (n_layers, B, cache_len, H_kv, hd)``."""
+    """Empty decode caches on ``device``: ``pos`` (0-d int32); a dense or
+    moe segment's stacked ``{"k", "v"}: (n_layers, B, cache_len, H_kv,
+    hd)``; a mamba segment's stacked ``{"h", "conv"}`` states (``(groups,
+    attn_every, B, ...)`` for the hybrid groups, whose shared blocks' KV
+    caches are ``groups_attn``)."""
     dtype = dtype or cfg.dtype
     out: Dict[str, Any] = {
         "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def kv(n):
+        shape = (n, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
+
+    def mamba_state(*lead):
+        mc = _mamba_cfg(cfg)
+        return {"h": zeros(*lead, batch, mc.n_heads, mc.d_state,
+                           mc.head_dim),
+                "conv": zeros(*lead, batch, mc.conv_width - 1,
+                              mc.d_inner + 2 * mc.d_state)}
+
     for seg in segments(cfg):
-        shape = (seg.count, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-        out[seg.name] = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                         "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if seg.kind in ("dense", "moe"):
+            out[seg.name] = kv(seg.count)
+        elif seg.kind == "mamba":
+            out[seg.name] = mamba_state(seg.count)
+        else:                                   # zamba_group
+            out[seg.name] = mamba_state(seg.count, seg.inner)
+            out[seg.name + "_attn"] = kv(seg.count)
     return out
 
 
@@ -216,41 +288,108 @@ def _moe_block_decode(cfg, p, x, kvc, pos, window):
     return x + y, kvc
 
 
-def _stack(ys):
-    """Per-layer trees -> one tree of stacked leaves (scan's ``ys``)."""
-    return tree_map(lambda *ts: torch.stack(ts), *ys)
+def _mamba_block(cfg, p, x):
+    return x + ssm.mamba_train(p["mamba"],
+                               norm_apply(cfg.norm, p["ln"], x),
+                               _mamba_cfg(cfg))
+
+
+def _mamba_block_prefill(cfg, p, x):
+    h = norm_apply(cfg.norm, p["ln"], x)
+    y, st = ssm.mamba_prefill(p["mamba"], h, _mamba_cfg(cfg))
+    return x + y, {"h": st.h, "conv": st.conv}
+
+
+def _mamba_block_decode(cfg, p, x_t, st):
+    h = norm_apply(cfg.norm, p["ln"], x_t)
+    y, st = ssm.mamba_decode_step(p["mamba"], h,
+                                  ssm.MambaState(st["h"], st["conv"]),
+                                  _mamba_cfg(cfg))
+    return x_t + y, {"h": st.h, "conv": st.conv}
+
+
+def _shared_mlp(cfg, sp, x):
+    if "mlp" not in sp:
+        return x
+    h = norm_apply(cfg.norm, sp["ln2"], x)
+    return x + mlp(sp["mlp"], h, cfg.act)
+
+
+def _shared_attn_apply(cfg, sp, x, window):
+    h = norm_apply(cfg.norm, sp["ln"], x)
+    x = x + attn.attn_train(sp["attn"], h, causal=True,
+                            **_attn_kwargs(cfg, window))
+    return _shared_mlp(cfg, sp, x)
+
+
+def _shared_attn_prefill(cfg, sp, x, window, cache_len):
+    h = norm_apply(cfg.norm, sp["ln"], x)
+    a, kvc = attn.attn_prefill(sp["attn"], h, cache_len=cache_len,
+                               **_attn_kwargs(cfg, window))
+    return _shared_mlp(cfg, sp, x + a), {"k": kvc.k, "v": kvc.v}
+
+
+def _shared_attn_decode(cfg, sp, x, kv, pos, window):
+    h = norm_apply(cfg.norm, sp["ln"], x)
+    a, kvc = attn.attn_decode(sp["attn"], h, attn.KVCache(kv["k"], kv["v"]),
+                              pos, **_attn_kwargs(cfg, window))
+    return _shared_mlp(cfg, sp, x + a), {"k": kvc.k, "v": kvc.v}
+
+
+def _stack(ys, lead: Optional[Tuple[int, ...]] = None):
+    """Per-layer trees -> one tree of stacked leaves (scan's ``ys``); with
+    ``lead``, the stacked axis is split into those axes (the hybrid groups'
+    ``(groups, attn_every)``), so nested stacks are built in one copy."""
+    if lead is None:
+        return tree_map(lambda *ts: torch.stack(ts), *ys)
+    return tree_map(lambda *ts: torch.stack(ts).unflatten(0, lead), *ys)
 
 
 def blocks_prefill(cfg: ModelCfg, kind: str, p_seg, x: torch.Tensor,
                    window: Optional[int], cache_len: int
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Prompt forward through a run of stacked ``kind`` blocks: the output
-    hiddens and the run's stacked ``{"k", "v"}`` cache."""
+    """Prompt forward through a run of stacked ``kind`` blocks (dense, moe
+    or mamba): the output hiddens and the run's stacked cache (``{"k",
+    "v"}``, or the mamba states ``{"h", "conv"}``)."""
+    x, ys = _run_prefill(cfg, kind, p_seg, x, window, cache_len)
+    return x, _stack(ys)
+
+
+def _run_prefill(cfg, kind, p_seg, x, window, cache_len):
     def body(h, pl):
         if kind == "dense":
             h2, kvc = _dense_block_prefill(cfg, pl, h, window, cache_len)
-        else:
+        elif kind == "moe":
             h2, _, kvc = _moe_block_prefill(cfg, pl, h, window, cache_len)
+        else:
+            return _mamba_block_prefill(cfg, pl, h)
         return h2, {"k": kvc.k, "v": kvc.v}
-    x, kvs = scan(body, x, p_seg)
-    return x, _stack(kvs)
+    return scan(body, x, p_seg)
 
 
 def blocks_decode(cfg: ModelCfg, kind: str, p_seg, x: torch.Tensor,
-                  kv: Dict[str, torch.Tensor], pos: torch.Tensor,
-                  window: Optional[int]
+                  cache, pos: torch.Tensor, window: Optional[int]
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token through a run of stacked ``kind`` blocks against the run's
-    stacked cache ``kv``; returns the hiddens and a new stacked cache."""
-    block = _dense_block_decode if kind == "dense" else _moe_block_decode
+    stacked cache; returns the hiddens and a new stacked cache."""
+    x, ys = _run_decode(cfg, kind, p_seg, x, cache, pos, window)
+    return x, _stack(ys)
 
-    def body(h, xs):
-        h2, kvc = block(cfg, xs["p"], h, attn.KVCache(xs["c"]["k"],
-                                                      xs["c"]["v"]),
-                        pos, window)
-        return h2, {"k": kvc.k, "v": kvc.v}
-    x, kvs = scan(body, x, {"p": p_seg, "c": kv})
-    return x, _stack(kvs)
+
+def _run_decode(cfg, kind, p_seg, x, cache, pos, window):
+    if kind == "mamba":
+        def body(h, xs):
+            h2, st = _mamba_block_decode(cfg, xs["p"], h[:, 0, :], xs["c"])
+            return h2[:, None, :], st
+    else:
+        block = _dense_block_decode if kind == "dense" else _moe_block_decode
+
+        def body(h, xs):
+            h2, kvc = block(cfg, xs["p"], h, attn.KVCache(xs["c"]["k"],
+                                                          xs["c"]["v"]),
+                            pos, window)
+            return h2, {"k": kvc.k, "v": kvc.v}
+    return scan(body, x, {"p": p_seg, "c": cache})
 
 
 # ================================================================== remat ==
@@ -321,18 +460,36 @@ def forward(cfg: ModelCfg, params, tokens: torch.Tensor,
     x = _embed_tokens(cfg, params, tokens, prefix_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg in segments(cfg):
-        if seg.kind == "dense":
-            block = _checkpointed(
-                cfg, lambda h, pl: _dense_block(cfg, pl, h, window))
-            x, _ = scan(lambda h, pl: (block(h, pl), None), x,
-                        params[seg.name])
-        else:
+        p_seg = params[seg.name]
+        if seg.kind == "moe":
             block = _checkpointed(
                 cfg, lambda h, pl: _moe_block(cfg, pl, h, window))
-            x, auxs = scan(block, x, params[seg.name])
+            x, auxs = scan(block, x, p_seg)
             aux = aux + torch.stack(auxs).sum()
+        elif seg.kind == "zamba_group":
+            shared = _shared_blocks(params)
+
+            def group(h, pl_g, sp):
+                h, _ = scan(lambda h2, pl: (_mamba_block(cfg, pl, h2), None),
+                            h, pl_g)
+                return _shared_attn_apply(cfg, sp, h, window)
+            block = _checkpointed(cfg, group)
+            for g, pl_g in enumerate(unstack(p_seg)):
+                x = block(x, pl_g, shared[g % len(shared)])
+        else:
+            fn = {"dense": lambda h, pl: _dense_block(cfg, pl, h, window),
+                  "mamba": lambda h, pl: _mamba_block(cfg, pl, h)}[seg.kind]
+            block = _checkpointed(cfg, fn)
+            x, _ = scan(lambda h, pl: (block(h, pl), None), x, p_seg)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     return _head(cfg, params, x), aux
+
+
+def _shared_blocks(params) -> List[Dict[str, Any]]:
+    """The hybrid's shared blocks, each a view of ``shared_attn``; group
+    ``g`` runs block ``g % len(...)``.  One ``unbind`` a call, not a
+    ``_pick`` a group, for the reason ``_pick`` gives."""
+    return unstack(params["shared_attn"])
 
 
 def _head(cfg, params, x):
@@ -373,8 +530,21 @@ def prefill(cfg: ModelCfg, params, tokens: torch.Tensor,
     cache: Dict[str, Any] = {
         "pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
     for seg in segments(cfg):
-        x, cache[seg.name] = blocks_prefill(cfg, seg.kind, params[seg.name],
-                                            x, window, cache_len)
+        p_seg = params[seg.name]
+        if seg.kind != "zamba_group":
+            x, cache[seg.name] = blocks_prefill(cfg, seg.kind, p_seg, x,
+                                                window, cache_len)
+            continue
+        shared = _shared_blocks(params)
+        sts, kvs = [], []
+        for g, pl_g in enumerate(unstack(p_seg)):
+            x, st = _run_prefill(cfg, "mamba", pl_g, x, window, cache_len)
+            x, kv = _shared_attn_prefill(cfg, shared[g % len(shared)], x,
+                                         window, cache_len)
+            sts += st
+            kvs.append(kv)
+        cache[seg.name] = _stack(sts, (seg.count, seg.inner))
+        cache[seg.name + "_attn"] = _stack(kvs)
     x = norm_apply(cfg.norm, params["final_norm"], x[:, -1:, :])
     return _head(cfg, params, x), cache
 
@@ -391,8 +561,23 @@ def decode_step(cfg: ModelCfg, params, cache: Dict[str, Any],
     x = _embed_step(cfg, params, tokens, pos)
     new_cache: Dict[str, Any] = {"pos": pos + 1}
     for seg in segments(cfg):
-        x, new_cache[seg.name] = blocks_decode(
-            cfg, seg.kind, params[seg.name], x, cache[seg.name], pos, window)
+        p_seg, c_seg = params[seg.name], cache[seg.name]
+        if seg.kind != "zamba_group":
+            x, new_cache[seg.name] = blocks_decode(cfg, seg.kind, p_seg, x,
+                                                   c_seg, pos, window)
+            continue
+        shared = _shared_blocks(params)
+        sts, kvs = [], []
+        for g, xs in enumerate(unstack({"p": p_seg, "c": c_seg,
+                                        "kv": cache[seg.name + "_attn"]})):
+            x, st = _run_decode(cfg, "mamba", xs["p"], x, xs["c"], pos,
+                                window)
+            x, kv = _shared_attn_decode(cfg, shared[g % len(shared)], x,
+                                        xs["kv"], pos, window)
+            sts += st
+            kvs.append(kv)
+        new_cache[seg.name] = _stack(sts, (seg.count, seg.inner))
+        new_cache[seg.name + "_attn"] = _stack(kvs)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     return _head(cfg, params, x), new_cache
 
@@ -400,8 +585,8 @@ def decode_step(cfg: ModelCfg, params, cache: Dict[str, Any],
 # ============================================================== analytics ==
 def count_params(cfg: ModelCfg) -> int:
     """Analytic parameter count (held against ``init`` and against the JAX
-    package in the tests).  The hybrid and xLSTM counts need their block
-    configs (ROADMAP Q1.3) and raise."""
+    package in the tests).  The xLSTM count needs its block config (ROADMAP
+    Q1.3b) and raises."""
     d, V = cfg.d_model, cfg.vocab_padded
     total = V * d                                 # embed
     if not cfg.tie_embeddings:
@@ -418,13 +603,32 @@ def count_params(cfg: ModelCfg) -> int:
                    + (cfg.n_heads * cfg.head_dim
                       + 2 * cfg.n_kv_heads * cfg.head_dim
                       if cfg.qkv_bias else 0))
-    if cfg.family == "moe":
-        per = attn_params + 2 * nrm + d * cfg.n_experts \
-            + cfg.n_experts * d * cfg.d_ff * 3
-        if cfg.n_shared_experts:
-            per += d * (cfg.n_shared_experts * cfg.d_ff) * 3
-        return int(total + cfg.n_layers * per)
-    mults = 3 if cfg.act in ("silu", "swiglu") else 2
+    mlp_params = d * cfg.d_ff * (3 if cfg.act in ("silu", "swiglu") else 2)
+
+    def mamba_params():
+        mc = _mamba_cfg(cfg)
+        di, ds, nh = mc.d_inner, mc.d_state, mc.n_heads
+        return (d * (2 * di + 2 * ds + nh)           # in_proj
+                + (di + 2 * ds) * (mc.conv_width + 1) # conv w + b
+                + 3 * nh + di                         # A_log, D, dt_bias, norm
+                + di * d)                             # out_proj
+
     for seg in segments(cfg):
-        total += seg.count * (attn_params + d * cfg.d_ff * mults + 2 * nrm)
+        if seg.kind == "dense":
+            total += seg.count * (attn_params + mlp_params + 2 * nrm)
+        elif seg.kind == "moe":
+            per = attn_params + 2 * nrm + d * cfg.n_experts \
+                + cfg.n_experts * d * cfg.d_ff * 3
+            if cfg.n_shared_experts:
+                per += d * (cfg.n_shared_experts * cfg.d_ff) * 3
+            total += seg.count * per
+        elif seg.kind == "mamba":
+            total += seg.count * (mamba_params() + nrm)
+        else:                                     # zamba_group
+            total += seg.count * seg.inner * (mamba_params() + nrm)
+    if cfg.family == "hybrid":
+        per_shared = attn_params + nrm
+        if cfg.d_ff > 0:
+            per_shared += mlp_params + nrm
+        total += max(cfg.n_shared_attn, 1) * per_shared
     return int(total)

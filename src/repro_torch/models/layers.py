@@ -3,12 +3,13 @@
 Every layer is an (init, apply) pair of plain functions; params are nested
 dicts of tensors with the JAX package's key paths.  An init function draws
 from the ``torch.Generator`` it is given and puts its tensors on that
-generator's device.
+generator's device; one that draws nothing (the norms) takes ``device`` as
+a required keyword.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +21,7 @@ Params = Dict[str, torch.Tensor]
 
 
 # ------------------------------------------------------------------- norms --
-def rmsnorm_init(d: int, dtype=torch.float32, device="cpu") -> Params:
+def rmsnorm_init(d: int, dtype=torch.float32, *, device) -> Params:
     return {"scale": torch.ones(d, dtype=dtype, device=device)}
 
 
@@ -32,7 +33,7 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["scale"].to(torch.float32)).to(dt)
 
 
-def layernorm_init(d: int, dtype=torch.float32, device="cpu") -> Params:
+def layernorm_init(d: int, dtype=torch.float32, *, device) -> Params:
     return {"scale": torch.ones(d, dtype=dtype, device=device),
             "bias": torch.zeros(d, dtype=dtype, device=device)}
 
@@ -47,9 +48,9 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
             + p["bias"].to(torch.float32)).to(dt)
 
 
-def norm_init(kind: str, d: int, dtype=torch.float32, device="cpu") -> Params:
-    return (layernorm_init(d, dtype, device) if kind == "layernorm"
-            else rmsnorm_init(d, dtype, device))
+def norm_init(kind: str, d: int, dtype=torch.float32, *, device) -> Params:
+    return (layernorm_init(d, dtype, device=device) if kind == "layernorm"
+            else rmsnorm_init(d, dtype, device=device))
 
 
 def norm_apply(kind: str, p, x: torch.Tensor) -> torch.Tensor:
@@ -136,6 +137,39 @@ def mlp(p: Dict[str, Params], x: torch.Tensor,
 def mlp_flops(tokens: int, d: int, d_ff: int, act: str = "silu") -> float:
     mults = 3 if act in ("silu", "swiglu") else 2
     return 2.0 * tokens * d * d_ff * mults
+
+
+# -------------------------------------------------------------- conv (SSM) --
+def causal_conv1d_init(gen: torch.Generator, channels: int, width: int,
+                       dtype=torch.float32) -> Params:
+    s = 1.0 / math.sqrt(width)
+    u = torch.rand((width, channels), generator=gen, device=gen.device,
+                   dtype=torch.float32)
+    return {"w": (u * (2 * s) - s).to(dtype),
+            "b": torch.zeros(channels, dtype=dtype, device=gen.device)}
+
+
+def causal_conv1d(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time. x: (B, S, C).  The taps are summed
+    one by one in tap order, as in the JAX package (``F.conv1d`` sums in
+    another order)."""
+    w = p["w"].to(x.dtype)               # (W, C)
+    width = w.shape[0]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(width):               # width is tiny (4); unrolled taps
+        out = out + pad[:, i:i + x.shape[1], :] * w[i]
+    return out + p["b"].to(x.dtype)
+
+
+def causal_conv1d_step(p: Params, x_t: torch.Tensor, window: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step. x_t: (B, C); window: (B, W-1, C) past inputs.
+    Returns (y_t, new_window)."""
+    w = p["w"].to(x_t.dtype)             # (W, C)
+    full = torch.cat([window, x_t[:, None, :]], dim=1)   # (B, W, C)
+    y = torch.einsum("bwc,wc->bc", full, w) + p["b"].to(x_t.dtype)
+    return y, full[:, 1:, :]
 
 
 # -------------------------------------------------------------------- loss --

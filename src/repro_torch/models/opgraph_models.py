@@ -69,7 +69,7 @@ def gpt_opgraph(cfg: ModelCfg, batch: int, seq: int) -> OpGraph:
         prev = name
 
     def head_init(gen, s):
-        return {"ln": norm_init(cfg.norm, d, cfg.param_dtype, gen.device),
+        return {"ln": norm_init(cfg.norm, d, cfg.param_dtype, device=gen.device),
                 "w": dense_init(gen, d, V, cfg.param_dtype, scale=0.02)}
 
     g.add(OpNode("head", OpType.PARAMETRIC, args=(prev,),

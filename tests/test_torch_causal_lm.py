@@ -1,5 +1,6 @@
-"""The port's monolithic causal LM (dense and vlm families) and the convnet
-OP-DAG against the JAX package, on the same weights, on the CPU.
+"""The port's monolithic causal LM (dense and vlm families; every ported
+config's ``count_params``) and the convnet OP-DAG against the JAX
+package, on the same weights, on the CPU.
 
 Weights are made by the JAX package and carried across with
 ``from_numpy_tree``.  Logits and losses are held at rtol 1e-5, atol 1e-6,
@@ -89,7 +90,8 @@ def test_init_is_reproducible_from_its_generator():
 
 
 @pytest.mark.parametrize("size", ["smoke", "full"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["zamba2-7b", "deepseek-moe-16b",
+                                          "mixtral-8x7b"])
 def test_count_params_equals_jax(arch, size):
     cfg_j, cfg_t = _cfgs(arch, size)
     assert t_lm.count_params(cfg_t) == j_lm.count_params(cfg_j)
@@ -105,17 +107,17 @@ def test_count_params_moe_arithmetic_and_unported_families():
     moe = t_lm.init(TModelCfg(**kw), torch.Generator().manual_seed(0))
     assert sum(t.numel() for t in tree_leaves(moe)) == \
         t_lm.count_params(TModelCfg(**kw))
-    for cfg in (TModelCfg(name="hy", family="hybrid", n_layers=4, d_model=64,
+    for cfg in (TModelCfg(name="xl", family="xlstm", n_layers=4, d_model=64,
                           n_heads=4, n_kv_heads=4, d_ff=0, vocab=64,
-                          attn_every=2),):
+                          slstm_every=2),):
         with pytest.raises(NotImplementedError, match="ROADMAP Q1"):
             t_lm.segments(cfg)
         with pytest.raises(NotImplementedError, match="ROADMAP Q1"):
             t_lm.init(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP Q1.3"):
-        t_lm.count_params(TModelCfg(name="hy", family="hybrid", n_layers=4,
+        t_lm.count_params(TModelCfg(name="xl", family="xlstm", n_layers=4,
                                     d_model=64, n_heads=4, n_kv_heads=4,
-                                    d_ff=0, vocab=64, attn_every=2))
+                                    d_ff=0, vocab=64, slstm_every=2))
 
 
 # --------------------------------------------------------------- forward --

@@ -1,7 +1,9 @@
 """The port's decode path against the JAX package, on the same weights, on
 the CPU: ``attn_prefill`` / ``attn_decode``, ``causal_lm.prefill`` /
-``decode_step`` / ``cache_init`` (dense and moe), the moe family's
-``forward`` and ``train_loss``, and the step builders.
+``decode_step`` / ``cache_init`` (dense and moe, the smoke variants of
+deepseek-moe-16b and mixtral-8x7b among them), the moe family's
+``forward`` and ``train_loss``, and the step builders.  The hybrid family's
+decode path is held in ``tests/test_torch_hybrid.py``.
 
 Logits are held at rtol 1e-5, atol 1e-6 (the frameworks sum in other
 orders); the caches hold keys and values of unit scale, deep in the stack,
@@ -116,7 +118,8 @@ def _lm(name, batch=2, seed=0):
     return cfg_j, cfg_t, pj, pt
 
 
-LMS = ["gpt2-xl", "llama3-8b", "moe", "moe-top3-shared-window"]
+LMS = ["gpt2-xl", "llama3-8b", "moe", "moe-top3-shared-window",
+       "deepseek-moe-16b", "mixtral-8x7b"]
 
 
 @pytest.mark.parametrize("name", LMS)
@@ -185,12 +188,12 @@ def test_cache_init_matches_jax_and_decodes(name):
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    hy = TModelCfg(name="hy", family="hybrid", n_layers=4, d_model=64,
-                   n_heads=4, n_kv_heads=4, d_ff=0, vocab=64, attn_every=2)
+    xl = TModelCfg(name="xl", family="xlstm", n_layers=4, d_model=64,
+                   n_heads=4, n_kv_heads=4, d_ff=0, vocab=64, slstm_every=2)
     with pytest.raises(NotImplementedError, match="ROADMAP Q1.3"):
-        t_lm.cache_init(hy, 1, 8, device=CPU)
+        t_lm.cache_init(xl, 1, 8, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP Q1.3"):
-        t_lm.prefill(hy, {"embed": {"table": torch.zeros(64, 64)}},
+        t_lm.prefill(xl, {"embed": {"table": torch.zeros(64, 64)}},
                      torch.zeros(1, 2, dtype=torch.long))
     enc = TModelCfg(name="ed", family="encdec", n_layers=4, d_model=64,
                     n_heads=4, n_kv_heads=4, d_ff=64, vocab=64,
@@ -202,7 +205,8 @@ def test_unported_families_raise_naming_the_roadmap():
 
 
 # ------------------------------------------------------------ moe family --
-@pytest.mark.parametrize("name", ["moe", "moe-top3-shared-window"])
+@pytest.mark.parametrize("name", ["moe", "moe-top3-shared-window",
+                                  "deepseek-moe-16b", "mixtral-8x7b"])
 def test_moe_family_forward_and_train_loss_match_jax(name):
     cfg_j, cfg_t, pj, pt = _lm(name)
     shapes = lambda tree: jax.tree_util.tree_map(np.shape, tree)  # noqa: E731

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where one gpt2-xl decode step spends its time, on a CUDA card.
+"""Where one decode step spends its time, on a CUDA card.
 
-    python3 tools/decode_profile.py [--batch B] [--reps N] [--top K]
+    python3 tools/decode_profile.py [--arch A] [--batch B] [--reps N] [--top K]
 
-Builds gpt2-xl at full width and depth (random weights from seed 0, fp32,
-TF32 off) on the card, prefills 12 tokens into a 64-slot cache, and runs
-``causal_lm.decode_step`` ``--reps`` times under ``torch.profiler`` (CPU
-and CUDA activity).  It prints one JSON object: the step's span from CUDA
-events and its host time (both per step, median), the summed kernel time
-per step and its share of the span (how busy the card is), the count of
-top-level aten calls and of kernel launches per step, and the ``--top``
-aten ops by host self time and kernels by device time.
+Builds ``--arch`` (gpt2-xl, the default, or zamba2-7b) at full width and
+depth (random weights from seed 0, fp32, TF32 off) on the card, prefills
+the prompt ``chip_smoke.py``'s serve phase for that model uses into its
+cache (gpt2-xl: 12 tokens into 64 slots; zamba2-7b: 128 tokens, one SSD
+chunk, into 512), and runs ``causal_lm.decode_step`` ``--reps`` times
+under ``torch.profiler`` (CPU and CUDA activity).  It prints one JSON
+object: the step's span from CUDA events and its host time (both per
+step, median), the summed kernel time per step and its share of the span
+(how busy the card is), the count of top-level aten calls and of kernel
+launches per step, and the ``--top`` aten ops by host self time and
+kernels by device time.
 """
 from __future__ import annotations
 
@@ -22,10 +25,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+PROMPT_AND_CACHE = {"gpt2-xl": (12, 64), "zamba2-7b": (128, 512)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="gpt2-xl",
+                    choices=sorted(PROMPT_AND_CACHE))
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--top", type=int, default=12)
@@ -38,13 +44,15 @@ def main(argv=None) -> int:
     from repro_torch.models import causal_lm
 
     dev = resolve_device("cuda")
-    cfg = resolve("gpt2-xl").full
+    cfg = resolve(args.arch).full
+    n_prompt, cache_len = PROMPT_AND_CACHE[args.arch]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = causal_lm.init(cfg, gen)
-    prompt = torch.randint(0, cfg.vocab, (args.batch, 12), generator=gen,
-                           device=dev)
-    logits, cache = causal_lm.prefill(cfg, params, prompt, cache_len=64)
+    prompt = torch.randint(0, cfg.vocab, (args.batch, n_prompt),
+                           generator=gen, device=dev)
+    logits, cache = causal_lm.prefill(cfg, params, prompt,
+                                      cache_len=cache_len)
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
 
     def step():
