@@ -74,15 +74,30 @@
    prints the decode step (batch 1 and 4) and the prefill (128 and 512
    tokens) in ms (median of 20, CUDA events) beside the profiler's kernel
    time and the bound, and the peak memory;
-10. drives the error-feedback and dense entry points (``ef_compress``,
+10. drives the xLSTM family — xlstm-1.3b at full width and depth (48
+   layers: 6 groups of 7 mLSTM blocks and one sLSTM block; d_model 2048;
+   random weights from seed 0, fp32): serves a 128-token prompt at batch 1
+   and 128 greedy tokens through ``steps.make_prefill_step`` /
+   ``make_decode_step`` and trains 3 Adafactor steps (batch 4, seq 256)
+   through ``make_train_step``, the codec's counts set to 0 just before
+   each and read just after (all stay 0); it holds the decoded logits
+   against a teacher-forced ``causal_lm.forward`` as in 9, step 1's loss
+   against ``train_loss`` (rel 1e-6) and every loss finite, prints the
+   decode step (batch 1 and 4) and the prefill (128 and 512 tokens) in ms
+   beside the profiler's kernel time and the bound, the step seconds,
+   tokens/s, FLOP bound and peak memory, and holds xlstm-smoke and a
+   5-layer variant with an mlstm tail on the card against the CPU (prefill,
+   4 decode steps with their caches, one step's loss and gradients, within
+   rel 1e-5);
+11. drives the error-feedback and dense entry points (``ef_compress``,
    ``ops.topk_mask``, ``ops.ef_topk``) over 5 steps with the residual
    carried, counting their launches, and holds ``ef_compress`` bit-exact
    against the EF training step's own composition on the card and against
    the CPU's plain version;
-11. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
+12. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
    versions at every (boundary shape, k a block) that the training and
    elastic paths gave them, derived from each step's plan;
-12. checks the output the repository's way: finite losses, RAD equal to
+13. checks the output the repository's way: finite losses, RAD equal to
     single-device autograd on the card at smoke size, the card's loss
     curves (plain and error-feedback) against the CPU's on the same
     weights, gpt2-smoke through ``train_gspmd`` on the card against the
@@ -1796,6 +1811,347 @@ def check_hybrid_smoke(dev):
         {"model": cfg.name, "max_rel_gap_card_cpu": gaps}))
 
 
+XLSTM_ARCH = "xlstm-1_3b"
+XLSTM_PROMPT = 128
+XLSTM_NEW = 128             # greedy decode steps
+XLSTM_CACHE_LEN = XLSTM_PROMPT + XLSTM_NEW  # no KV: the builders ignore it
+XLSTM_GAP = 1e-3            # decode vs forward logits, rel to max |logit|
+XLSTM_PREFILLS = {128: SERVE_TIMING_REPS, 512: 10}  # prompt: timed calls
+XLSTM_TRAIN_STEPS = 3       # Adafactor steps at full size
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 4, 256
+XLSTM_SMOKE_GAP = 1e-5      # xlstm-smoke and its tailed variant, card vs CPU
+
+
+def xlstm_bound_ms(cfg, batch, tokens) -> dict:
+    """Least time of one xLSTM call over ``tokens`` new tokens a sequence at
+    ``batch`` (decode: 1, prefill: the prompt) from the config: the bytes it
+    must move — every weight but the embedding table read once (the blocks
+    and the head), the input embeddings read, the recurrent states (each
+    mLSTM's C, n, m and conv tail; each sLSTM's c, n, h, m) written once
+    (and read once when decoding), the last position's logits written — or
+    its fp32 operations (``mlstm_flops`` / ``slstm_flops``, the decode's
+    C update and read-out, the head), whichever is larger."""
+    from repro_torch.models import causal_lm, xlstm
+
+    xc = causal_lm._xlstm_cfg(cfg)
+    d, V = cfg.d_model, cfg.vocab_padded
+    segs = causal_lm.segments(cfg)
+    n_s = sum(s.count for s in segs if s.kind == "xlstm_group")
+    n_m = cfg.n_layers - n_s
+    nh, hd, di = xc.n_heads, xc.head_dim_m, xc.d_inner_m
+    weights = causal_lm.count_params(cfg) - V * d     # all but the table
+    state = batch * (n_m * (nh * hd * hd + nh * hd + nh
+                            + (xc.conv_width - 1) * di)
+                     + n_s * 4 * nh * xc.head_dim_s)
+    nbytes = 4 * (weights + batch * tokens * d
+                  + state * (2 if tokens == 1 else 1) + batch * V)
+    T = batch * tokens
+    ops = (n_m * xlstm.mlstm_flops(T, tokens, xc)
+           + n_s * xlstm.slstm_flops(T, xc) + 2 * batch * d * V)
+    if tokens == 1:     # C = f C + i v k^T and C q: 6 operations an entry
+        ops += n_m * 6 * T * nh * hd * hd
+    ms = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+          "operations": 1e3 * ops / FP32_OPS_PER_S}
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by], "bound_by": by, "weight_bytes": 4 * weights,
+            "state_bytes": 4 * state, "bytes": nbytes, "operations": ops}
+
+
+def time_xlstm(cfg, params, dev) -> dict:
+    """xlstm-1.3b full through the step builders: ``decode_step`` at batch
+    1 and 4 (against a cache from an XLSTM_PROMPT-token prefill), SERVE_
+    TIMING_REPS calls each, and the prefill of each prompt of
+    XLSTM_PREFILLS at batch 1 for its count of calls (CUDA events): median
+    and spread, the profiler's kernel time of one call, the bound, and the
+    greedy tokens/s of the median decode step."""
+    import statistics
+
+    import torch
+    from repro_torch.distributed.steps import (make_decode_step,
+                                               make_prefill_step)
+
+    prefill = make_prefill_step(cfg, cache_len=XLSTM_CACHE_LEN)
+    decode = make_decode_step(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+
+    def row(fn, batch, tokens, reps=SERVE_TIMING_REPS):
+        ms = event_times_ms(fn, reps=reps)
+        out = {"median_ms": statistics.median(ms), "min_ms": min(ms),
+               "max_ms": max(ms), "reps": len(ms),
+               "kernel_ms": device_busy_ms(fn, reps=1)}
+        out.update(xlstm_bound_ms(cfg, batch, tokens))
+        return out
+
+    out = {}
+    for batch in (1, 4):
+        prompt = torch.randint(0, cfg.vocab, (batch, XLSTM_PROMPT),
+                               generator=gen, device=dev)
+        logits, cache = prefill(params, {"tokens": prompt})
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        r = row(lambda: decode(params, cache, tok), batch, 1)
+        r["greedy_tokens_per_s"] = 1e3 * batch / r["median_ms"]
+        out[f"decode_b{batch}"] = r
+        del logits, cache
+    for S, reps in XLSTM_PREFILLS.items():
+        prompt = torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                               device=dev)
+        out[f"prefill_{S}_b1"] = row(
+            lambda: prefill(params, {"tokens": prompt}), 1, S, reps)
+    return out
+
+
+def train_xlstm(cfg, params, dev) -> dict:
+    """XLSTM_TRAIN_STEPS steps of ``make_train_step(cfg, adafactor(1e-3))``
+    (the JAX package's default optimizer for its step builders) from
+    ``params`` on ``SyntheticLM`` data (seed 0, order 1) through
+    ``ShardedLoader``; step 1's loss is held against ``train_loss`` on the
+    same batch and weights (rel 1e-6), and every loss must be finite."""
+    import torch
+    from repro_torch.data import ShardedLoader, SyntheticLM
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.models import causal_lm
+    from repro_torch.optim import adafactor
+
+    B, S = XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ
+    opt = adafactor(1e-3)
+    step_fn = make_train_step(cfg, opt)
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=S, seed=0, order=1)
+    loader = ShardedLoader((ds.batch(B, i) for i in range(XLSTM_TRAIN_STEPS)),
+                           dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = opt.init(params)
+    losses, step_s, first_ref = [], [], None
+    for i in range(XLSTM_TRAIN_STEPS):
+        batch = next(loader)
+        if i == 0:
+            with torch.no_grad():
+                first_ref = float(causal_lm.train_loss(cfg, params,
+                                                       batch)[0])
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"xlstm train: non-finite loss {losses}")
+    rel = abs(losses[0] - first_ref) / abs(first_ref)
+    if rel > 1e-6:
+        raise AssertionError(f"xlstm train: step 1's loss {losses[0]} vs "
+                             f"train_loss {first_ref} (rel {rel:.3e})")
+    steady = step_s[1:]
+    non_embed = causal_lm.count_params(cfg) - cfg.vocab_padded * cfg.d_model
+    flops = 6 * non_embed * B * S
+    return {"batch": B, "seq": S, "optimizer": "adafactor(1e-3)",
+            "losses": losses, "train_loss_step1": first_ref,
+            "step1_rel_gap": rel, "step_s": step_s,
+            "steady_step_s": sum(steady) / len(steady),
+            "tokens_per_s": B * S * len(steady) / sum(steady),
+            "flop_bound_ms": 1e3 * flops / FP32_OPS_PER_S,
+            "flops": flops, "peak_mem_gb": peak / 1e9}
+
+
+def run_xlstm_path(dev):
+    """xlstm-1.3b full (48 layers: 6 groups of 7 mLSTM blocks and one
+    sLSTM block; d_model 2048; random weights from seed 0, fp32) served
+    through ``steps.make_prefill_step`` / ``make_decode_step`` — an
+    XLSTM_PROMPT-token prompt at batch 1, then XLSTM_NEW greedy tokens — and
+    trained for XLSTM_TRAIN_STEPS Adafactor steps through
+    ``make_train_step``, the codec's counts set to 0 just before each and
+    read just after (neither runs the codec, as in JAX).  A teacher-forced
+    ``causal_lm.forward`` over the served tokens holds the decoded logits
+    (the recurrence against the parallel form: within XLSTM_GAP of the
+    largest |logit|, and the same argmax wherever the forward's top-2 margin
+    is over 10 times the gap); the decode step and the prefill are timed
+    beside their bound; then ``check_xlstm_smoke``."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.distributed.steps import (make_decode_step,
+                                               make_prefill_step)
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.models import causal_lm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = resolve(XLSTM_ARCH).full
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = causal_lm.init(cfg, gen)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t_phase
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != causal_lm.count_params(cfg):
+        raise AssertionError(f"xlstm: init drew {n_params} parameters, "
+                             f"count_params says "
+                             f"{causal_lm.count_params(cfg)}")
+    prefill = make_prefill_step(cfg, cache_len=XLSTM_CACHE_LEN)
+    decode = make_decode_step(cfg)
+    prompt = torch.randint(0, cfg.vocab, (1, XLSTM_PROMPT), generator=gen,
+                           device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    allocated = torch.cuda.memory_allocated(dev)
+
+    tk.reset_launch_counts()            # the serving run's counts start here
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompt})
+    tokens, decoded = [], []
+    for _ in range(XLSTM_NEW):
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        tokens.append(tok)
+        logits, cache = decode(params, cache, tok)
+        decoded.append(logits[:, -1, :])
+    torch.cuda.synchronize(dev)
+    serve_s = time.perf_counter() - t0
+    got = launch_counts()
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    if int(cache["pos"]) != XLSTM_PROMPT + XLSTM_NEW:
+        raise AssertionError(f"xlstm: cache at {int(cache['pos'])}")
+    del cache
+
+    seq = torch.cat([prompt] + tokens, dim=1)
+    with torch.inference_mode():
+        full, _ = causal_lm.forward(cfg, params, seq)
+    # the decoded positions, over the true vocabulary (not the -1e30 pad)
+    ref = full[0, XLSTM_PROMPT:, :cfg.vocab]
+    got_logits = torch.cat(decoded)[:, :cfg.vocab]
+    if not (torch.isfinite(got_logits).all() and torch.isfinite(ref).all()):
+        raise AssertionError("xlstm: non-finite logits")
+    gap_abs = float((got_logits - ref).abs().max())
+    gap = gap_abs / float(ref.abs().max())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 10 * gap_abs
+    same = torch.argmax(got_logits, -1) == torch.argmax(ref, -1)
+    n_clear = int(clear.sum())
+    if gap > XLSTM_GAP or not bool(same[clear].all()):
+        raise AssertionError(
+            f"xlstm: decode vs forward rel gap {gap:.3e} (limit "
+            f"{XLSTM_GAP}); argmax differs at "
+            f"{int((~same & clear).sum())} of {n_clear} clear positions")
+    argmax_differs = [[i, float(top2[i, 0] - top2[i, 1])]
+                      for i in torch.nonzero(~same).flatten().tolist()]
+    del full, ref, got_logits, decoded
+    timing = time_xlstm(cfg, params, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tk.reset_launch_counts()            # the training run's counts start here
+    training = train_xlstm(cfg, params, dev)
+    got = {n: c + got[n] for n, c in launch_counts().items()}
+    if any(got.values()):
+        raise AssertionError(f"xlstm: the codec ran on the serving or "
+                             f"training path: {got}")
+    report = {
+        "model": cfg.name, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "params": n_params,
+        "segments": [s._asdict() for s in causal_lm.segments(cfg)],
+        "prompt": XLSTM_PROMPT, "new_tokens": XLSTM_NEW,
+        "serve_s": serve_s, "tokens_per_s": XLSTM_NEW / serve_s,
+        "decode_vs_forward": {
+            "max_abs_gap": gap_abs, "rel_gap": gap,
+            "clear_positions": n_clear,
+            # positions (after the prompt) whose argmax differs, each with
+            # the forward's top-2 margin: all below 10 times the gap
+            "argmax_differs": argmax_differs},
+        "allocated_before_gb": allocated / 1e9,
+        "serve_peak_mem_gb": serve_peak / 1e9, "init_s": init_s,
+        "timing": timing, "training": training, "launches": got}
+    print("xlstm path: " + json.dumps(report))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke = check_xlstm_smoke(dev)
+    print(f"xlstm path: {XLSTM_NEW} greedy tokens, decode vs forward rel "
+          f"gap {gap:.2e}, argmax equal at {n_clear} clear positions; "
+          f"{XLSTM_TRAIN_STEPS} Adafactor steps, losses "
+          f"{training['losses']}; smoke card vs CPU max rel "
+          f"{max(smoke.values()):.2e}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return got
+
+
+def check_xlstm_smoke(dev) -> dict:
+    """xlstm-smoke (2 groups of one mLSTM + one sLSTM) and the same with 5
+    layers, which adds an mlstm tail (a segment the full config never
+    reaches), each with the same weights on the card and on the CPU: a
+    prefill and 4 decode steps (both fed the CPU's greedy tokens)
+    — the logits and every cache leaf, each leaf's largest gap over the
+    CPU's largest |value| —, and one train step's loss and gradients
+    (``loss_and_grad``; the gradient as one vector, its largest gap over its
+    largest |value|, as a logits tensor is held), all within
+    XLSTM_SMOKE_GAP.  Beside them it prints the gradient's worst leaf
+    against a float64 run on the CPU, for the card and for the CPU's
+    float32: how far float32 itself is from the exact gradient there.
+    Returns the largest gap of each check."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.core.rad import tree_map
+    from repro_torch.distributed.steps import loss_and_grad
+    from repro_torch.models import causal_lm
+
+    def rel(a, b):
+        a = torch.cat([t.to(torch.float64).flatten() for t in a])
+        b = torch.cat([t.to(torch.float64).flatten() for t in b])
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    def worst_leaf(a, b):
+        return max(rel([x], [y]) for x, y in zip(a, b))
+
+    cpu = torch.device("cpu")
+    out = {}
+    smoke = resolve(XLSTM_ARCH).smoke
+    for cfg in (smoke, smoke.replace(name="xlstm-smoke-tail", n_layers=5)):
+        params = causal_lm.init(cfg, torch.Generator().manual_seed(0))
+        toks = torch.randint(0, cfg.vocab, (2, 17),
+                             generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        sides = {}
+        feed = None
+        for side, d in (("cpu", cpu), ("card", dev)):
+            p = tree_map(lambda t: t.to(d), params)
+            logits, cache = causal_lm.prefill(cfg, p, toks[:, :8].to(d))
+            steps, caches, fed = [logits], [cache], []
+            for i in range(4):
+                tok = (torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+                       if feed is None else feed[i].to(d))
+                fed.append(tok.cpu())
+                logits, cache = causal_lm.decode_step(cfg, p, cache, tok)
+                steps.append(logits)
+                caches.append(cache)
+            feed = fed
+            loss, _, grads = loss_and_grad(
+                cfg, p, {k: v.to(d) for k, v in batch.items()})
+            sides[side] = {"serve": [t.cpu() for t in tree_leaves(
+                               {"logits": steps, "caches": caches})],
+                           "loss": [loss.cpu()],
+                           "grads": [t.cpu() for t in tree_leaves(grads)]}
+        cfg64 = cfg.replace(dtype=torch.float64, param_dtype=torch.float64)
+        _, _, g64 = loss_and_grad(
+            cfg64, tree_map(lambda t: t.to(torch.float64), params), batch)
+        g64 = tree_leaves(g64)
+        card, host = sides["card"], sides["cpu"]
+        out[cfg.name] = {
+            "serve": max(rel([a], [b]) for a, b in zip(card["serve"],
+                                                       host["serve"])),
+            "loss": rel(card["loss"], host["loss"]),
+            "grads": rel(card["grads"], host["grads"]),
+            "info_worst_grad_leaf_card_vs_float64":
+                worst_leaf(card["grads"], g64),
+            "info_worst_grad_leaf_cpu_vs_float64":
+                worst_leaf(host["grads"], g64)}
+    worst = {f"{n} {k}": v for n, g in out.items() for k, v in g.items()
+             if not k.startswith("info")}
+    if max(worst.values()) > XLSTM_SMOKE_GAP:
+        raise AssertionError(f"xlstm smoke: card and CPU differ: {out}")
+    print("xlstm smoke checks: " + json.dumps(
+        {"max_rel_gap_card_cpu": out, "limit": XLSTM_SMOKE_GAP}))
+    return worst
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
@@ -1832,6 +2188,7 @@ def main() -> int:
     paths["train elastic"], elastic_cases = run_elastic_path(dev)
     paths["serve"] = run_serve_path(dev)
     paths["serve hybrid"] = run_hybrid_serve_path(dev)
+    paths["xlstm"] = run_xlstm_path(dev)
     paths["entry points"] = run_entry_points(dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
     if not all(launches.values()):

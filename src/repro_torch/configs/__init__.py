@@ -1,8 +1,7 @@
 """Architecture configs.  ``load_all()`` imports every per-arch module so the
 registry is populated; ``repro_torch.configs.base.get_arch`` is the public
 lookup.  Ported so far: every config whose blocks the port has (dense, vlm,
-moe and hybrid); the xLSTM and enc-dec configs come with ROADMAP Q1.3b and
-Q1.3c."""
+moe, hybrid and xlstm); the enc-dec config comes with ROADMAP Q1.3c."""
 from .base import (ArchEntry, InputShape, INPUT_SHAPES, ModelCfg, REGISTRY,
                    get_arch, register)
 
@@ -10,7 +9,7 @@ _LOADED = False
 
 ARCH_IDS = ["zamba2-7b", "deepseek-moe-16b", "mistral-nemo-12b",
             "llama3-8b", "mixtral-8x7b", "stablelm-12b", "internvl2-2b",
-            "granite-3-8b", "gpt2-xl"]
+            "granite-3-8b", "xlstm-1_3b", "gpt2-xl"]
 
 _MODULES = {
     "zamba2-7b": "zamba2_7b",
@@ -21,8 +20,12 @@ _MODULES = {
     "stablelm-12b": "stablelm_12b",
     "internvl2-2b": "internvl2_2b",
     "granite-3-8b": "granite_3_8b",
+    "xlstm-1_3b": "xlstm_1_3b",
     "gpt2-xl": "gpt2_xl",
 }
+
+# accepted aliases (the assignment writes xlstm-1.3b)
+ALIASES = {"xlstm-1.3b": "xlstm-1_3b"}
 
 
 def load_all() -> None:
@@ -37,6 +40,7 @@ def load_all() -> None:
 
 def resolve(arch_id: str) -> ArchEntry:
     load_all()
+    arch_id = ALIASES.get(arch_id, arch_id)
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(REGISTRY)}")
     return REGISTRY[arch_id]

@@ -1,4 +1,4 @@
-"""Decoder-only causal LM: the dense, moe, hybrid and vlm families.
+"""Decoder-only causal LM: the dense, moe, hybrid, xlstm and vlm families.
 
 * ``dense``  — (GQA + SwiGLU/GELU) × L (llama3, mistral-nemo, stablelm,
   granite, gpt2);
@@ -6,13 +6,16 @@
 * ``hybrid`` — Mamba2 × L with alternating shared attention + MLP blocks
   (zamba2): groups of ``attn_every`` Mamba2 blocks, each followed by shared
   block ``g % n_shared_attn``, then a tail of Mamba2 blocks;
+* ``xlstm``  — groups of ``slstm_every - 1`` mLSTM blocks, each followed by
+  one sLSTM block, then a tail of mLSTM blocks (xlstm-1.3b);
 * ``vlm``    — the dense LM consuming stub patch embeddings (internvl2).
 
 The blocks' parameters are stacked on a leading axis (two for the hybrid
-groups: ``(groups, attn_every, ...)``), as in the JAX package, so the two
+groups: ``(groups, attn_every, ...)``, and the xLSTM groups' mLSTM blocks
+``(groups, slstm_every - 1, ...)``), as in the JAX package, so the two
 packages' trees have the same key paths and shapes;
 :func:`repro_torch.models.scan_config.scan` runs them in a loop.  The
-xLSTM family comes with ROADMAP Q1.3b.
+encoder-decoder comes with ROADMAP Q1.3c.
 
 Entry points:
   ``init``          params (blocks stacked per segment)
@@ -43,16 +46,17 @@ from repro_torch.core.rad import tree_map
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
+from . import xlstm as xl
 from .layers import (cross_entropy, dense, dense_init, embed, embed_init,
                      mlp, mlp_init, norm_apply, norm_init)
 from .scan_config import scan, unstack
 
-_NOT_PORTED = {"xlstm": "ROADMAP Q1.3b"}
+_NOT_PORTED = {"encdec": "ROADMAP Q1.3c"}
 
 
 class Segment(NamedTuple):
     name: str       # params/cache key
-    kind: str       # dense | moe | mamba | zamba_group (the kinds ported)
+    kind: str       # dense | moe | mamba | zamba_group | mlstm | xlstm_group
     count: int      # scan trip count
     inner: int = 0  # inner layers per trip (grouped kinds)
 
@@ -68,6 +72,12 @@ def segments(cfg: ModelCfg) -> List[Segment]:
         if rem:
             segs.append(Segment("tail", "mamba", rem))
         return segs
+    if cfg.family == "xlstm":
+        g, rem = divmod(cfg.n_layers, cfg.slstm_every)
+        segs = [Segment("groups", "xlstm_group", g, cfg.slstm_every)]
+        if rem:
+            segs.append(Segment("tail", "mlstm", rem))
+        return segs
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
@@ -81,6 +91,10 @@ def _mamba_cfg(cfg: ModelCfg) -> ssm.MambaCfg:
                         n_heads=d_inner // cfg.ssm_head_dim,
                         head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
                         chunk=cfg.ssm_chunk)
+
+
+def _xlstm_cfg(cfg: ModelCfg) -> xl.XLSTMCfg:
+    return xl.XLSTMCfg(d_model=cfg.d_model, n_heads=cfg.n_heads)
 
 
 # ==================================================================== init ==
@@ -136,8 +150,26 @@ def _shared_attn_init(gen, cfg: ModelCfg):
     return p
 
 
+def _mlstm_block_init(gen, cfg: ModelCfg):
+    return {"ln": _norm(cfg, gen.device),
+            "mlstm": xl.mlstm_init(gen, _xlstm_cfg(cfg), cfg.param_dtype)}
+
+
+def _slstm_block_init(gen, cfg: ModelCfg):
+    return {"ln": _norm(cfg, gen.device),
+            "slstm": xl.slstm_init(gen, _xlstm_cfg(cfg), cfg.param_dtype)}
+
+
+def _xlstm_group_init(gen, cfg: ModelCfg):
+    g1, g2 = split_generator(gen, 2)
+    return {"m": _stack_init(lambda r: _mlstm_block_init(r, cfg), g1,
+                             cfg.slstm_every - 1),
+            "s": _slstm_block_init(g2, cfg)}
+
+
 _BLOCK_INIT = {"dense": _dense_block_init, "moe": _moe_block_init,
-               "mamba": _mamba_block_init, "zamba_group": _zamba_group_init}
+               "mamba": _mamba_block_init, "zamba_group": _zamba_group_init,
+               "mlstm": _mlstm_block_init, "xlstm_group": _xlstm_group_init}
 
 
 def _stack_init(init_fn, gen: torch.Generator, n: int):
@@ -191,7 +223,11 @@ def cache_init(cfg: ModelCfg, batch: int, cache_len: int, dtype=None, *,
     moe segment's stacked ``{"k", "v"}: (n_layers, B, cache_len, H_kv,
     hd)``; a mamba segment's stacked ``{"h", "conv"}`` states (``(groups,
     attn_every, B, ...)`` for the hybrid groups, whose shared blocks' KV
-    caches are ``groups_attn``)."""
+    caches are ``groups_attn``); an mlstm segment's stacked ``{"C", "n",
+    "m", "conv"}`` states, and the xLSTM groups' ``{"m": those states
+    (groups, slstm_every - 1, B, ...), "s": the sLSTM's {"c", "n", "h",
+    "m"} (groups, B, nh, hd)}`` (``m`` in fp32 at -1e30; no KV, so
+    ``cache_len`` goes unused, as in JAX)."""
     dtype = dtype or cfg.dtype
     out: Dict[str, Any] = {
         "pos": torch.zeros((), dtype=torch.int32, device=device)}
@@ -210,14 +246,35 @@ def cache_init(cfg: ModelCfg, batch: int, cache_len: int, dtype=None, *,
                 "conv": zeros(*lead, batch, mc.conv_width - 1,
                               mc.d_inner + 2 * mc.d_state)}
 
+    def m_fp32(*shape):
+        return torch.full(shape, -1e30, dtype=torch.float32, device=device)
+
+    def mlstm_state(*lead):
+        xc = _xlstm_cfg(cfg)
+        nh, hd = xc.n_heads, xc.head_dim_m
+        return {"C": zeros(*lead, batch, nh, hd, hd),
+                "n": zeros(*lead, batch, nh, hd),
+                "m": m_fp32(*lead, batch, nh),
+                "conv": zeros(*lead, batch, xc.conv_width - 1, xc.d_inner_m)}
+
+    def slstm_state(n):
+        shape = (n, batch, cfg.n_heads, _xlstm_cfg(cfg).head_dim_s)
+        return {"c": zeros(*shape), "n": zeros(*shape), "h": zeros(*shape),
+                "m": m_fp32(*shape)}
+
     for seg in segments(cfg):
         if seg.kind in ("dense", "moe"):
             out[seg.name] = kv(seg.count)
         elif seg.kind == "mamba":
             out[seg.name] = mamba_state(seg.count)
-        else:                                   # zamba_group
+        elif seg.kind == "zamba_group":
             out[seg.name] = mamba_state(seg.count, seg.inner)
             out[seg.name + "_attn"] = kv(seg.count)
+        elif seg.kind == "mlstm":
+            out[seg.name] = mlstm_state(seg.count)
+        else:                                   # xlstm_group
+            out[seg.name] = {"m": mlstm_state(seg.count, seg.inner - 1),
+                             "s": slstm_state(seg.count)}
     return out
 
 
@@ -308,6 +365,45 @@ def _mamba_block_decode(cfg, p, x_t, st):
     return x_t + y, {"h": st.h, "conv": st.conv}
 
 
+def _mlstm_block(cfg, p, x):
+    return x + xl.mlstm_block(p["mlstm"], norm_apply(cfg.norm, p["ln"], x),
+                              _xlstm_cfg(cfg))
+
+
+def _mlstm_block_prefill(cfg, p, x):
+    h = norm_apply(cfg.norm, p["ln"], x)
+    y, st = xl.mlstm_prefill(p["mlstm"], h, _xlstm_cfg(cfg))
+    return x + y, st._asdict()
+
+
+def _mlstm_block_decode(cfg, p, x_t, st):
+    h = norm_apply(cfg.norm, p["ln"], x_t)
+    y, st = xl.mlstm_decode_step(p["mlstm"], h, xl.MLSTMState(**st),
+                                 _xlstm_cfg(cfg))
+    return x_t + y, st._asdict()
+
+
+def _slstm_block(cfg, p, x):
+    return x + xl.slstm_block(p["slstm"], norm_apply(cfg.norm, p["ln"], x),
+                              _xlstm_cfg(cfg))
+
+
+def _slstm_block_prefill(cfg, p, x):
+    """The sLSTM block over the prompt, written out as in the JAX package's
+    prefill (norm, the cell scan, the FFN, the residual), with the state
+    after the last step."""
+    h = norm_apply(cfg.norm, p["ln"], x)
+    y, st = xl.slstm_seq(p["slstm"], h, _xlstm_cfg(cfg))
+    return x + xl.slstm_block_ffn(p["slstm"], y), st._asdict()
+
+
+def _slstm_block_decode(cfg, p, x_t, st):
+    h = norm_apply(cfg.norm, p["ln"], x_t)
+    y, st = xl.slstm_decode_step(p["slstm"], h, xl.SLSTMState(**st),
+                                 _xlstm_cfg(cfg))
+    return x_t + y, st._asdict()
+
+
 def _shared_mlp(cfg, sp, x):
     if "mlp" not in sp:
         return x
@@ -348,9 +444,9 @@ def _stack(ys, lead: Optional[Tuple[int, ...]] = None):
 def blocks_prefill(cfg: ModelCfg, kind: str, p_seg, x: torch.Tensor,
                    window: Optional[int], cache_len: int
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Prompt forward through a run of stacked ``kind`` blocks (dense, moe
-    or mamba): the output hiddens and the run's stacked cache (``{"k",
-    "v"}``, or the mamba states ``{"h", "conv"}``)."""
+    """Prompt forward through a run of stacked ``kind`` blocks (dense, moe,
+    mamba or mlstm): the output hiddens and the run's stacked cache
+    (``{"k", "v"}``, or the recurrent states)."""
     x, ys = _run_prefill(cfg, kind, p_seg, x, window, cache_len)
     return x, _stack(ys)
 
@@ -361,6 +457,8 @@ def _run_prefill(cfg, kind, p_seg, x, window, cache_len):
             h2, kvc = _dense_block_prefill(cfg, pl, h, window, cache_len)
         elif kind == "moe":
             h2, _, kvc = _moe_block_prefill(cfg, pl, h, window, cache_len)
+        elif kind == "mlstm":
+            return _mlstm_block_prefill(cfg, pl, h)
         else:
             return _mamba_block_prefill(cfg, pl, h)
         return h2, {"k": kvc.k, "v": kvc.v}
@@ -377,9 +475,11 @@ def blocks_decode(cfg: ModelCfg, kind: str, p_seg, x: torch.Tensor,
 
 
 def _run_decode(cfg, kind, p_seg, x, cache, pos, window):
-    if kind == "mamba":
+    if kind in ("mamba", "mlstm"):
+        block = _mamba_block_decode if kind == "mamba" else _mlstm_block_decode
+
         def body(h, xs):
-            h2, st = _mamba_block_decode(cfg, xs["p"], h[:, 0, :], xs["c"])
+            h2, st = block(cfg, xs["p"], h[:, 0, :], xs["c"])
             return h2[:, None, :], st
     else:
         block = _dense_block_decode if kind == "dense" else _moe_block_decode
@@ -476,9 +576,18 @@ def forward(cfg: ModelCfg, params, tokens: torch.Tensor,
             block = _checkpointed(cfg, group)
             for g, pl_g in enumerate(unstack(p_seg)):
                 x = block(x, pl_g, shared[g % len(shared)])
+        elif seg.kind == "xlstm_group":
+            def group(h, pl_g):
+                h, _ = scan(lambda h2, pl: (_mlstm_block(cfg, pl, h2), None),
+                            h, pl_g["m"])
+                return _slstm_block(cfg, pl_g["s"], h)
+            block = _checkpointed(cfg, group)
+            for pl_g in unstack(p_seg):
+                x = block(x, pl_g)
         else:
             fn = {"dense": lambda h, pl: _dense_block(cfg, pl, h, window),
-                  "mamba": lambda h, pl: _mamba_block(cfg, pl, h)}[seg.kind]
+                  "mamba": lambda h, pl: _mamba_block(cfg, pl, h),
+                  "mlstm": lambda h, pl: _mlstm_block(cfg, pl, h)}[seg.kind]
             block = _checkpointed(cfg, fn)
             x, _ = scan(lambda h, pl: (block(h, pl), None), x, p_seg)
     x = norm_apply(cfg.norm, params["final_norm"], x)
@@ -531,6 +640,17 @@ def prefill(cfg: ModelCfg, params, tokens: torch.Tensor,
         "pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
     for seg in segments(cfg):
         p_seg = params[seg.name]
+        if seg.kind == "xlstm_group":
+            msts, ssts = [], []
+            for pl_g in unstack(p_seg):
+                x, st = _run_prefill(cfg, "mlstm", pl_g["m"], x, window,
+                                     cache_len)
+                x, s_st = _slstm_block_prefill(cfg, pl_g["s"], x)
+                msts += st
+                ssts.append(s_st)
+            cache[seg.name] = {"m": _stack(msts, (seg.count, seg.inner - 1)),
+                               "s": _stack(ssts)}
+            continue
         if seg.kind != "zamba_group":
             x, cache[seg.name] = blocks_prefill(cfg, seg.kind, p_seg, x,
                                                 window, cache_len)
@@ -562,6 +682,20 @@ def decode_step(cfg: ModelCfg, params, cache: Dict[str, Any],
     new_cache: Dict[str, Any] = {"pos": pos + 1}
     for seg in segments(cfg):
         p_seg, c_seg = params[seg.name], cache[seg.name]
+        if seg.kind == "xlstm_group":
+            msts, ssts = [], []
+            for xs in unstack({"p": p_seg, "c": c_seg}):
+                x, st = _run_decode(cfg, "mlstm", xs["p"]["m"], x,
+                                    xs["c"]["m"], pos, window)
+                h, s_st = _slstm_block_decode(cfg, xs["p"]["s"], x[:, 0, :],
+                                              xs["c"]["s"])
+                x = h[:, None, :]
+                msts += st
+                ssts.append(s_st)
+            new_cache[seg.name] = {
+                "m": _stack(msts, (seg.count, seg.inner - 1)),
+                "s": _stack(ssts)}
+            continue
         if seg.kind != "zamba_group":
             x, new_cache[seg.name] = blocks_decode(cfg, seg.kind, p_seg, x,
                                                    c_seg, pos, window)
@@ -585,8 +719,7 @@ def decode_step(cfg: ModelCfg, params, cache: Dict[str, Any],
 # ============================================================== analytics ==
 def count_params(cfg: ModelCfg) -> int:
     """Analytic parameter count (held against ``init`` and against the JAX
-    package in the tests).  The xLSTM count needs its block config (ROADMAP
-    Q1.3b) and raises."""
+    package in the tests)."""
     d, V = cfg.d_model, cfg.vocab_padded
     total = V * d                                 # embed
     if not cfg.tie_embeddings:
@@ -613,6 +746,20 @@ def count_params(cfg: ModelCfg) -> int:
                 + 3 * nh + di                         # A_log, D, dt_bias, norm
                 + di * d)                             # out_proj
 
+    def mlstm_params():
+        c = _xlstm_cfg(cfg)
+        di, hd = c.d_inner_m, c.head_dim_m
+        return (d * 2 * di + di * (c.conv_width + 1)
+                + 3 * cfg.n_heads * hd * hd
+                + di * 2 * cfg.n_heads + di + di * d + cfg.n_heads)
+
+    def slstm_params():
+        c = _xlstm_cfg(cfg)
+        hd = c.head_dim_s
+        d_ff = xl._slstm_ffn_width(c)
+        return (d * 4 * d + 4 * cfg.n_heads * hd * hd + 4 * d + 2 * d
+                + d * d_ff * 2 + d_ff * d + cfg.n_heads * hd)
+
     for seg in segments(cfg):
         if seg.kind == "dense":
             total += seg.count * (attn_params + mlp_params + 2 * nrm)
@@ -624,8 +771,13 @@ def count_params(cfg: ModelCfg) -> int:
             total += seg.count * per
         elif seg.kind == "mamba":
             total += seg.count * (mamba_params() + nrm)
-        else:                                     # zamba_group
+        elif seg.kind == "zamba_group":
             total += seg.count * seg.inner * (mamba_params() + nrm)
+        elif seg.kind == "mlstm":
+            total += seg.count * (mlstm_params() + nrm)
+        else:                                     # xlstm_group
+            total += seg.count * ((seg.inner - 1) * (mlstm_params() + nrm)
+                                  + slstm_params() + nrm)
     if cfg.family == "hybrid":
         per_shared = attn_params + nrm
         if cfg.d_ff > 0:

@@ -1,0 +1,352 @@
+"""xLSTM blocks (arXiv:2405.04517) as functional PyTorch: mLSTM (matrix
+memory, parallelizable) and sLSTM (scalar memory, sequential scan).
+
+The same computation as the JAX package's ``models/xlstm.py``.  mLSTM
+training uses the stabilized parallel (quadratic) form — an attention-like
+matmul with an input/forget-gate decay matrix D; decode uses the O(1)
+recurrence
+
+    C_t = f_t C_{t-1} + i_t v_t k_t^T ,  n_t = f_t n_{t-1} + i_t k_t
+    h_t = C_t q_t / max(|n_t^T q_t|, exp(-m_t))
+
+with log-space gate stabilization m_t.  sLSTM is inherently sequential
+(recurrent hidden feedback): the reference runs it under ``lax.scan``, the
+port as a Python loop over the time steps that autograd sees through.
+
+Block wrappers follow the paper: mLSTM = pre-up-projection (×2) block;
+sLSTM = post-up-projection block with a gated FFN (×4/3).  ``d_ff = 0`` in
+the xlstm-1.3b config means exactly this: FFN capacity lives inside the
+blocks.  The reference has no Pallas kernel here (plain ``jnp``), so
+neither has the port.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.opgraph import split_generator
+from .layers import (causal_conv1d, causal_conv1d_init, causal_conv1d_step,
+                     dense_init, layernorm, layernorm_init, rmsnorm,
+                     rmsnorm_init)
+
+
+class XLSTMCfg(NamedTuple):
+    d_model: int
+    n_heads: int
+    proj_factor_m: float = 2.0        # mLSTM pre-up-projection
+    proj_factor_s: float = 4.0 / 3.0  # sLSTM FFN
+    conv_width: int = 4
+
+    @property
+    def d_inner_m(self) -> int:
+        return int(self.d_model * self.proj_factor_m)
+
+    @property
+    def head_dim_m(self) -> int:
+        return self.d_inner_m // self.n_heads
+
+    @property
+    def head_dim_s(self) -> int:
+        return self.d_model // self.n_heads
+
+
+# ------------------------------------------------------------------ mLSTM --
+class MLSTMState(NamedTuple):
+    C: torch.Tensor     # (B, nh, hd, hd)
+    n: torch.Tensor     # (B, nh, hd)
+    m: torch.Tensor     # (B, nh), fp32
+    conv: torch.Tensor  # (B, W-1, d_inner)
+
+
+def mlstm_init(gen: torch.Generator, cfg: XLSTMCfg,
+               dtype=torch.float32) -> Dict[str, Any]:
+    d, di, nh = cfg.d_model, cfg.d_inner_m, cfg.n_heads
+    hd = cfg.head_dim_m
+    gs = split_generator(gen, 7)
+    dev = gen.device
+
+    def blockdiag(g):
+        # per-head (block-diagonal) projection, as in the official mLSTM
+        return (torch.randn((nh, hd, hd), generator=g, device=dev,
+                            dtype=torch.float32) / math.sqrt(hd)).to(dtype)
+
+    return {
+        "up": dense_init(gs[0], d, 2 * di, dtype),       # (x_m, z)
+        "conv": causal_conv1d_init(gs[1], di, cfg.conv_width, dtype),
+        "wq": blockdiag(gs[2]),
+        "wk": blockdiag(gs[3]),
+        "wv": blockdiag(gs[4]),
+        "w_if": dense_init(gs[5], di, 2 * nh, dtype),    # i,f gate pre-acts
+        "norm": rmsnorm_init(di, dtype, device=dev),
+        "down": dense_init(gs[6], di, d, dtype, scale=1.0 / math.sqrt(di)),
+        # open forget gates; fp32 whatever the parameter dtype
+        "f_bias": torch.full((nh,), 3.0, dtype=torch.float32, device=dev),
+    }
+
+
+def _mlstm_parallel(q, k, v, i_pre, f_pre):
+    """q/k/v: (B,S,nh,hd); i_pre/f_pre: (B,S,nh).  Stabilized parallel form."""
+    B, S, nh, hd = q.shape
+    logf = F.logsigmoid(f_pre.to(torch.float32))                # (B,S,nh)
+    cum = torch.cumsum(logf, dim=1)
+    # D_log[l,m] = cum_l - cum_m + i_m  (contribution of step m to step l)
+    D_log = (cum[:, :, None, :] - cum[:, None, :, :]
+             + i_pre.to(torch.float32)[:, None, :, :])          # (B,Sq,Sk,nh)
+    causal = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                   device=q.device))[None, :, :, None]
+    D_log = torch.where(causal, D_log, D_log.new_full((), -math.inf))
+    # amax splits the gradient among ties, as jnp.max does
+    m_row = torch.amax(D_log, dim=2, keepdim=True)              # (B,S,1,nh)
+    m_row = torch.maximum(m_row, m_row.new_full((), -1e30))
+    D = torch.exp(D_log - m_row)
+    scores = torch.einsum("blhd,bmhd->blmh", q, k) / math.sqrt(hd)
+    w = scores.to(torch.float32) * D
+    denom = torch.maximum(torch.abs(w.sum(dim=2)),
+                          torch.exp(-m_row[:, :, 0, :]))        # (B,S,nh)
+    y = torch.einsum("blmh,bmhd->blhd", w.to(v.dtype), v)
+    return y / denom[..., None].to(v.dtype)
+
+
+def _mlstm_inputs(p, x: torch.Tensor, cfg: XLSTMCfg):
+    """The up-projection, conv and gate pre-activations of a sequence:
+    (xm, z, q, k, v, i_pre, f_pre)."""
+    B, S, _ = x.shape
+    nh, hd = cfg.n_heads, cfg.head_dim_m
+    up = x @ p["up"]["w"].to(x.dtype)
+    xm, z = up.chunk(2, dim=-1)
+    xc = F.silu(causal_conv1d(p["conv"], xm))
+    xch = xc.reshape(B, S, nh, hd)
+    q = torch.einsum("bsnd,nde->bsne", xch, p["wq"].to(x.dtype))
+    k = torch.einsum("bsnd,nde->bsne", xch, p["wk"].to(x.dtype))
+    v = torch.einsum("bsnd,nde->bsne", xm.reshape(B, S, nh, hd),
+                     p["wv"].to(x.dtype))
+    i_pre, f_pre = (xc @ p["w_if"]["w"].to(x.dtype)).chunk(2, dim=-1)
+    f_pre = f_pre + p["f_bias"][None, None, :].to(f_pre.dtype)
+    return xm, z, q, k, v, i_pre, f_pre
+
+
+def _mlstm_out(p, y: torch.Tensor, z: torch.Tensor, x: torch.Tensor):
+    y = rmsnorm(p["norm"], y) * F.silu(z)
+    return y @ p["down"]["w"].to(x.dtype)
+
+
+def mlstm_block(p, x: torch.Tensor, cfg: XLSTMCfg) -> torch.Tensor:
+    """Full-sequence mLSTM block body (the caller owns the residual)."""
+    B, S, _ = x.shape
+    _, z, q, k, v, i_pre, f_pre = _mlstm_inputs(p, x, cfg)
+    y = _mlstm_parallel(q, k, v, i_pre, f_pre).reshape(B, S, cfg.d_inner_m)
+    return _mlstm_out(p, y, z, x)
+
+
+def mlstm_prefill(p, x: torch.Tensor, cfg: XLSTMCfg
+                  ) -> Tuple[torch.Tensor, MLSTMState]:
+    """Parallel-form forward that also emits the recurrent state after the
+    last position (matches the decode recurrence: the running stabilizer
+    m_t = max_{m≤t}(Σ_{j>m} log f_j + ĩ_m)).  The conv tail is the plain
+    slice the reference takes, so a prompt shorter than ``conv_width - 1``
+    leaves a short tail and the next decode step raises, as in JAX."""
+    B, S, _ = x.shape
+    xm, z, q, k, v, i_pre, f_pre = _mlstm_inputs(p, x, cfg)
+    conv_tail = xm[:, S - (cfg.conv_width - 1):, :]
+    y = _mlstm_parallel(q, k, v, i_pre, f_pre).reshape(B, S, cfg.d_inner_m)
+    out = _mlstm_out(p, y, z, x)
+
+    # final state: C̃_S = Σ_m exp(cum_S - cum_m + i_m - m_S) v_m k_m^T
+    logf = F.logsigmoid(f_pre.to(torch.float32))
+    cum = torch.cumsum(logf, dim=1)                             # (B,S,nh)
+    w_log = cum[:, -1:, :] - cum + i_pre.to(torch.float32)      # (B,S,nh)
+    m_S = torch.amax(w_log, dim=1)                              # (B,nh)
+    w = torch.exp(w_log - m_S[:, None, :]).to(x.dtype)          # (B,S,nh)
+    C = torch.einsum("bshv,bshk->bhvk", w[..., None] * v, k)
+    n = torch.einsum("bsh,bshk->bhk", w, k)
+    return out, MLSTMState(C=C, n=n, m=m_S, conv=conv_tail)
+
+
+def mlstm_state_init(cfg: XLSTMCfg, batch: int, dtype=torch.float32, *,
+                     device) -> MLSTMState:
+    nh, hd = cfg.n_heads, cfg.head_dim_m
+    return MLSTMState(
+        C=torch.zeros((batch, nh, hd, hd), dtype=dtype, device=device),
+        n=torch.zeros((batch, nh, hd), dtype=dtype, device=device),
+        m=torch.full((batch, nh), -1e30, dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, cfg.conv_width - 1, cfg.d_inner_m),
+                         dtype=dtype, device=device))
+
+
+def mlstm_decode_step(p, x_t: torch.Tensor, state: MLSTMState,
+                      cfg: XLSTMCfg) -> Tuple[torch.Tensor, MLSTMState]:
+    """One token. x_t: (B, d_model) -> (y_t, new state); the new state is
+    built out of place, ``state`` is left as it was."""
+    B = x_t.shape[0]
+    di, nh, hd = cfg.d_inner_m, cfg.n_heads, cfg.head_dim_m
+    up = x_t @ p["up"]["w"].to(x_t.dtype)
+    xm, z = up.chunk(2, dim=-1)
+    xc, new_conv = causal_conv1d_step(p["conv"], xm, state.conv)
+    xc = F.silu(xc)
+    xch = xc.reshape(B, nh, hd)
+    q = torch.einsum("bnd,nde->bne", xch, p["wq"].to(x_t.dtype))
+    k = torch.einsum("bnd,nde->bne", xch, p["wk"].to(x_t.dtype))
+    v = torch.einsum("bnd,nde->bne", xm.reshape(B, nh, hd),
+                     p["wv"].to(x_t.dtype))
+    i_pre, f_pre = (xc @ p["w_if"]["w"].to(x_t.dtype)).chunk(2, dim=-1)
+    f_pre = (f_pre + p["f_bias"][None, :]).to(torch.float32)
+    i_pre = i_pre.to(torch.float32)
+    logf = F.logsigmoid(f_pre)                                  # (B,nh)
+    m_new = torch.maximum(logf + state.m, i_pre)
+    fs = torch.exp(logf + state.m - m_new).to(x_t.dtype)[..., None]
+    is_ = torch.exp(i_pre - m_new).to(x_t.dtype)[..., None]
+    C = fs[..., None] * state.C \
+        + is_[..., None] * v[..., :, None] * k[..., None, :]
+    n = fs * state.n + is_ * k
+    qs = q / math.sqrt(hd)
+    num = torch.einsum("bhvk,bhk->bhv", C, qs)
+    den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, qs)),
+                        torch.exp(-m_new).to(x_t.dtype))
+    y = (num / den[..., None]).reshape(B, di)
+    return _mlstm_out(p, y, z, x_t), \
+        MLSTMState(C=C, n=n, m=m_new, conv=new_conv)
+
+
+# ------------------------------------------------------------------ sLSTM --
+class SLSTMState(NamedTuple):
+    c: torch.Tensor     # (B, nh, hd)
+    n: torch.Tensor     # (B, nh, hd)
+    h: torch.Tensor     # (B, nh, hd)
+    m: torch.Tensor     # (B, nh, hd), fp32
+
+
+def _slstm_ffn_width(cfg: XLSTMCfg) -> int:
+    """×4/3 gated FFN, rounded up to a multiple of 64 (the official xLSTM
+    does the same)."""
+    raw = int(cfg.proj_factor_s * cfg.d_model)
+    return -(-raw // 64) * 64
+
+
+def slstm_init(gen: torch.Generator, cfg: XLSTMCfg,
+               dtype=torch.float32) -> Dict[str, Any]:
+    d, nh, hd = cfg.d_model, cfg.n_heads, cfg.head_dim_s
+    d_ff = _slstm_ffn_width(cfg)
+    gs = split_generator(gen, 5)
+    dev = gen.device
+    s = 1.0 / math.sqrt(hd)
+    return {
+        # input projections for gates z,i,f,o : (d, 4*d)
+        "w_in": dense_init(gs[0], d, 4 * d, dtype),
+        # recurrent per-head block-diagonal: (4, nh, hd, hd)
+        "r": (torch.randn((4, nh, hd, hd), generator=gs[1], device=dev,
+                          dtype=torch.float32) * s).to(dtype),
+        "b": torch.zeros((4, d), dtype=dtype, device=dev),
+        "gn": layernorm_init(d, dtype, device=dev),
+        "ffn_gate": dense_init(gs[2], d, d_ff, dtype),
+        "ffn_up": dense_init(gs[3], d, d_ff, dtype),
+        "ffn_down": dense_init(gs[4], d_ff, d, dtype,
+                               scale=1.0 / math.sqrt(d_ff)),
+        "f_bias": torch.full((nh, hd), 3.0, dtype=torch.float32, device=dev),
+    }
+
+
+def _recurrent_weights(r: torch.Tensor) -> torch.Tensor:
+    """(4, nh, hd, hd) -> (nh, hd, 4*hd): the per-head recurrent matrices
+    side by side, so a step's four gate products are one batched matmul.
+    ``slstm_seq`` packs them once a call, not once a step."""
+    g, nh, hd, e = r.shape
+    return r.permute(1, 2, 0, 3).reshape(nh, hd, g * e)
+
+
+def _slstm_cell(p, x_proj_t: torch.Tensor, state: SLSTMState, cfg: XLSTMCfg,
+                r_packed: torch.Tensor) -> Tuple[torch.Tensor, SLSTMState]:
+    """One sLSTM step.  x_proj_t: (B, 4, nh, hd) pre-activations from the
+    input; ``r_packed``: ``_recurrent_weights(p["r"])``."""
+    B = x_proj_t.shape[0]
+    nh, hd = cfg.n_heads, cfg.head_dim_s
+    # rec[b, g, h, e] = Σ_d h[b, h, d] r[g, h, d, e]
+    rec = torch.bmm(state.h.transpose(0, 1), r_packed.to(state.h.dtype))
+    rec = rec.reshape(nh, B, 4, hd).permute(1, 2, 0, 3)
+    pre = x_proj_t + rec + p["b"].to(x_proj_t.dtype).reshape(4, nh, hd)[None]
+    z_pre, i_pre, f_pre, o_pre = pre.unbind(1)
+    z = torch.tanh(z_pre)
+    o = torch.sigmoid(o_pre)
+    logi = i_pre.to(torch.float32)
+    logf = F.logsigmoid(f_pre.to(torch.float32) + p["f_bias"][None])
+    m_new = torch.maximum(logf + state.m, logi)
+    i_s = torch.exp(logi - m_new).to(z.dtype)
+    f_s = torch.exp(logf + state.m - m_new).to(z.dtype)
+    c = f_s * state.c + i_s * z
+    n = f_s * state.n + i_s
+    # maximum, not clamp: n starts at exactly 1, and at that tie maximum
+    # splits the gradient in halves, as jnp.maximum does
+    h = o * c / torch.maximum(torch.abs(n), n.new_full((), 1.0))
+    return h, SLSTMState(c=c, n=n, h=h, m=m_new)
+
+
+def slstm_seq(p, x: torch.Tensor, cfg: XLSTMCfg,
+              state: Optional[SLSTMState] = None
+              ) -> Tuple[torch.Tensor, SLSTMState]:
+    """Sequential sLSTM over (B, S, d); returns the head outputs (B, S, d)
+    and the state after the last step."""
+    B, S, d = x.shape
+    nh, hd = cfg.n_heads, cfg.head_dim_s
+    xp = (x @ p["w_in"]["w"].to(x.dtype)).reshape(B, S, 4, nh, hd)
+    if state is None:
+        state = slstm_state_init(cfg, B, x.dtype, device=x.device)
+    r_packed = _recurrent_weights(p["r"])
+    hs = []
+    for xt in torch.unbind(xp, 1):
+        h, state = _slstm_cell(p, xt, state, cfg, r_packed)
+        hs.append(h)
+    return torch.stack(hs, 1).reshape(B, S, d), state
+
+
+def slstm_state_init(cfg: XLSTMCfg, batch: int, dtype=torch.float32, *,
+                     device) -> SLSTMState:
+    nh, hd = cfg.n_heads, cfg.head_dim_s
+
+    def z():
+        return torch.zeros((batch, nh, hd), dtype=dtype, device=device)
+    return SLSTMState(c=z(), n=z(), h=z(),
+                      m=torch.full((batch, nh, hd), -1e30,
+                                   dtype=torch.float32, device=device))
+
+
+def slstm_block_ffn(p, y: torch.Tensor) -> torch.Tensor:
+    """Post-cell part of the sLSTM block: group-norm + gated FFN (GELU,
+    tanh approximation: ``jax.nn.gelu``'s default)."""
+    y = layernorm(p["gn"], y)
+    h = F.gelu(y @ p["ffn_gate"]["w"].to(y.dtype), approximate="tanh") \
+        * (y @ p["ffn_up"]["w"].to(y.dtype))
+    return h @ p["ffn_down"]["w"].to(y.dtype)
+
+
+def slstm_block(p, x: torch.Tensor, cfg: XLSTMCfg) -> torch.Tensor:
+    """sLSTM block body: cell scan + group-norm + gated FFN."""
+    y, _ = slstm_seq(p, x, cfg)
+    return slstm_block_ffn(p, y)
+
+
+def slstm_decode_step(p, x_t: torch.Tensor, state: SLSTMState,
+                      cfg: XLSTMCfg) -> Tuple[torch.Tensor, SLSTMState]:
+    B, d = x_t.shape
+    nh, hd = cfg.n_heads, cfg.head_dim_s
+    xp = (x_t @ p["w_in"]["w"].to(x_t.dtype)).reshape(B, 4, nh, hd)
+    h, state = _slstm_cell(p, xp, state, cfg, _recurrent_weights(p["r"]))
+    return slstm_block_ffn(p, h.reshape(B, d)), state
+
+
+def mlstm_flops(tokens: int, seq: int, cfg: XLSTMCfg) -> float:
+    d, di, nh, hd = cfg.d_model, cfg.d_inner_m, cfg.n_heads, cfg.head_dim_m
+    proj = 2.0 * tokens * d * 2 * di \
+        + 2.0 * tokens * (3 * nh * hd * hd + di * 2 * nh) \
+        + 2.0 * tokens * di * d
+    quad = 2.0 * 2.0 * tokens * seq * nh * hd
+    return proj + quad
+
+
+def slstm_flops(tokens: int, cfg: XLSTMCfg) -> float:
+    d, nh, hd = cfg.d_model, cfg.n_heads, cfg.head_dim_s
+    d_ff = _slstm_ffn_width(cfg)
+    cell = 2.0 * tokens * d * 4 * d + 2.0 * tokens * 4 * nh * hd * hd
+    ffn = 2.0 * tokens * d * d_ff * 3
+    return cell + ffn

@@ -107,17 +107,23 @@ def test_count_params_moe_arithmetic_and_unported_families():
     moe = t_lm.init(TModelCfg(**kw), torch.Generator().manual_seed(0))
     assert sum(t.numel() for t in tree_leaves(moe)) == \
         t_lm.count_params(TModelCfg(**kw))
-    for cfg in (TModelCfg(name="xl", family="xlstm", n_layers=4, d_model=64,
-                          n_heads=4, n_kv_heads=4, d_ff=0, vocab=64,
-                          slstm_every=2),):
-        with pytest.raises(NotImplementedError, match="ROADMAP Q1"):
-            t_lm.segments(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP Q1"):
-            t_lm.init(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP Q1.3"):
-        t_lm.count_params(TModelCfg(name="xl", family="xlstm", n_layers=4,
-                                    d_model=64, n_heads=4, n_kv_heads=4,
-                                    d_ff=0, vocab=64, slstm_every=2))
+    # the xLSTM family is ported (ROADMAP Q1.3b): its count is JAX's and
+    # what init draws; only the encoder-decoder raises, naming Q1.3c
+    xl = dict(name="xl", family="xlstm", n_layers=5, d_model=64, n_heads=4,
+              n_kv_heads=4, d_ff=0, vocab=64, slstm_every=2)
+    assert [tuple(s) for s in t_lm.segments(TModelCfg(**xl))] == \
+        [tuple(s) for s in j_lm.segments(JModelCfg(**xl))]
+    drawn = t_lm.init(TModelCfg(**xl), torch.Generator().manual_seed(0))
+    assert t_lm.count_params(TModelCfg(**xl)) == \
+        j_lm.count_params(JModelCfg(**xl)) == \
+        sum(t.numel() for t in tree_leaves(drawn))
+    enc = TModelCfg(name="ed", family="encdec", n_layers=4, d_model=64,
+                    n_heads=4, n_kv_heads=4, d_ff=64, vocab=64,
+                    n_enc_layers=2)
+    for fn in (t_lm.segments, t_lm.count_params,
+               lambda c: t_lm.init(c, torch.Generator().manual_seed(0))):
+        with pytest.raises(NotImplementedError, match="ROADMAP Q1.3c"):
+            fn(enc)
 
 
 # --------------------------------------------------------------- forward --

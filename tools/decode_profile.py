@@ -3,11 +3,12 @@
 
     python3 tools/decode_profile.py [--arch A] [--batch B] [--reps N] [--top K]
 
-Builds ``--arch`` (gpt2-xl, the default, or zamba2-7b) at full width and
-depth (random weights from seed 0, fp32, TF32 off) on the card, prefills
-the prompt ``chip_smoke.py``'s serve phase for that model uses into its
+Builds ``--arch`` (gpt2-xl, the default, zamba2-7b or xlstm-1_3b) at full
+width and depth (random weights from seed 0, fp32, TF32 off) on the card,
+prefills the prompt ``chip_smoke.py``'s phase for that model uses into its
 cache (gpt2-xl: 12 tokens into 64 slots; zamba2-7b: 128 tokens, one SSD
-chunk, into 512), and runs ``causal_lm.decode_step`` ``--reps`` times
+chunk, into 512; xlstm-1_3b: 128 tokens into its recurrent states, which
+take no cache length), and runs ``causal_lm.decode_step`` ``--reps`` times
 under ``torch.profiler`` (CPU and CUDA activity).  It prints one JSON
 object: the step's span from CUDA events and its host time (both per
 step, median), the summed kernel time per step and its share of the span
@@ -25,7 +26,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-PROMPT_AND_CACHE = {"gpt2-xl": (12, 64), "zamba2-7b": (128, 512)}
+PROMPT_AND_CACHE = {"gpt2-xl": (12, 64), "zamba2-7b": (128, 512),
+                    "xlstm-1_3b": (128, 256)}
 
 
 def main(argv=None) -> int:
