@@ -89,15 +89,32 @@
    5-layer variant with an mlstm tail on the card against the CPU (prefill,
    4 decode steps with their caches, one step's loss and gradients, within
    rel 1e-5);
-11. drives the error-feedback and dense entry points (``ef_compress``,
+11. drives the encoder-decoder — seamless-m4t-large-v2 at full width and
+   depth (12 encoder + 12 decoder layers, d_model 1024, vocab 256,206
+   padded to 256,256; random weights from seed 0, fp32): serves 64 frame
+   embeddings (``steps.src_len_for(cfg, 512)``) and an 8-token target
+   prefix at batch 1 with a cache of 512, then 128 greedy tokens, through
+   ``steps.make_prefill_step`` / ``make_decode_step``, and trains 3 AdamW
+   steps (batch 8, 256 target tokens over 32 frames, ``SyntheticSeq2Seq``)
+   through ``make_train_step``, the codec's counts set to 0 just before
+   each and read just after (all stay 0); it holds the served logits
+   against a teacher-forced ``encdec._decoder_train`` on the same memory
+   as in 9, step 1's loss against ``train_loss`` (rel 1e-6) and every loss
+   finite, prints the decode step (batch 1 and 4) and the prefill (64
+   frames × 8 tokens, 512 × 512) in ms beside the profiler's kernel time
+   and the bound, the step seconds, target tokens/s, FLOP bound and peak
+   memory, and holds seamless-smoke and a 2 + 2-layer variant with a
+   padded vocabulary on the card against the CPU (prefill, 4 decode steps
+   with their caches, one step's loss and gradients, within rel 1e-5);
+12. drives the error-feedback and dense entry points (``ef_compress``,
    ``ops.topk_mask``, ``ops.ef_topk``) over 5 steps with the residual
    carried, counting their launches, and holds ``ef_compress`` bit-exact
    against the EF training step's own composition on the card and against
    the CPU's plain version;
-12. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
+13. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
    versions at every (boundary shape, k a block) that the training and
    elastic paths gave them, derived from each step's plan;
-13. checks the output the repository's way: finite losses, RAD equal to
+14. checks the output the repository's way: finite losses, RAD equal to
     single-device autograd on the card at smoke size, the card's loss
     curves (plain and error-feedback) against the CPU's on the same
     weights, gpt2-smoke through ``train_gspmd`` on the card against the
@@ -2152,6 +2169,396 @@ def check_xlstm_smoke(dev) -> dict:
     return worst
 
 
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_PREFIX = 8           # target tokens the prefill takes
+ENCDEC_CACHE_LEN = 512      # self-KV slots; the source is src_len_for(512)
+ENCDEC_NEW = 128            # greedy decode steps
+ENCDEC_GAP = 1e-3           # decode vs forward logits, rel to max |logit|
+# timed prefills: (target tokens, cache_len); frames = src_len_for(cache_len)
+ENCDEC_PREFILLS = ((ENCDEC_PREFIX, ENCDEC_CACHE_LEN), (512, 4096))
+ENCDEC_TRAIN_STEPS = 3      # AdamW steps at full size
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 8, 256
+ENCDEC_SMOKE_GAP = 1e-5     # seamless-smoke, its padded variant: card vs CPU
+# 2 + 2 layers with a vocabulary padded past its true size (the smoke
+# config pads nothing, so the head's -1e30 mask would go unexercised)
+ENCDEC_SMOKE_PAD = dict(name="seamless-smoke-pad", n_layers=4,
+                        n_enc_layers=2, vocab=500, vocab_pad_to=64)
+
+
+def encdec_bound_ms(cfg, batch, src_len, tokens, cache_len, kv_len) -> dict:
+    """Least time of one encoder-decoder serving call at ``batch`` from the
+    config: a prefill (``tokens`` target tokens over ``src_len`` frames,
+    caches of ``cache_len``) or a decode step (``tokens`` = 1, attending
+    ``kv_len`` cached positions and ``src_len`` frames).  Bytes: the
+    weights the call uses read once (a decode: the decoder blocks,
+    ``final_norm`` and the head; a prefill: every weight but the embedding
+    table), the embedding rows and frames read, the caches read (decode)
+    or written (prefill) once, the new K/V rows and the last position's
+    logits written.  Operations: the fp32 matmul work of these shapes (the
+    prefill's causal scores at S(S+1)/2 pairs, the decode's K/V projected
+    for the new token only, the cross K/V for no token: the prefill made
+    them; logits for the last position only).  ``model_flops`` beside it is
+    ``forward_flops``, the reference's whole-model accounting of a call of
+    that batch and length, which takes the source length from the target
+    length and counts logits at every position."""
+    from repro_torch.analysis import forward_flops
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import mlp_flops
+
+    d, V, n_dec = cfg.d_model, cfg.vocab_padded, cfg.n_dec_layers
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    nrm = 2 * d
+    attn_w = 2 * d * q + 2 * d * kv
+    mlp_w = 2 * d * cfg.d_ff
+    dec_w = n_dec * (2 * attn_w + mlp_w + 3 * nrm) + nrm + d * V
+    self_kv = 2 * n_dec * batch * cache_len * kv
+    cross_kv = 2 * n_dec * batch * src_len * kv
+    T = batch * tokens
+    decode = tokens == 1
+    if decode:
+        weights = dec_w
+        nbytes = 4 * (weights + T * d + self_kv + cross_kv
+                      + 2 * n_dec * T * kv + batch * V)
+        attn_ops = (2 * T * d * (2 * q + 2 * kv)        # self q, k, v, o
+                    + 4 * T * kv_len * q                 # self scores, mix
+                    + 2 * T * d * 2 * q                  # cross q, o
+                    + 4 * T * src_len * q)               # cross scores, mix
+        ops = n_dec * (attn_ops + mlp_flops(T, d, cfg.d_ff, cfg.act))
+        model = forward_flops(cfg, batch, 1, kv_len=kv_len, decode=True)
+    else:
+        weights = encdec.count_params(cfg) - V * d
+        Ts = batch * src_len
+        nbytes = 4 * (weights + T * d + Ts * cfg.d_frontend + self_kv
+                      + cross_kv + batch * V)
+        enc_ops = cfg.n_enc_layers * (
+            2 * Ts * d * (2 * q + 2 * kv) + 4 * Ts * src_len * q
+            + mlp_flops(Ts, d, cfg.d_ff, cfg.act))
+        dec_ops = n_dec * (
+            2 * T * d * (2 * q + 2 * kv)
+            + 4 * batch * (tokens * (tokens + 1) // 2) * q
+            + 2 * T * d * 2 * q + 2 * Ts * d * 2 * kv
+            + 4 * T * src_len * q + mlp_flops(T, d, cfg.d_ff, cfg.act))
+        ops = 2 * Ts * cfg.d_frontend * d + enc_ops + dec_ops
+        model = forward_flops(cfg, batch, tokens)
+    ops += 2 * batch * d * V                              # head
+    ms = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+          "operations": 1e3 * ops / FP32_OPS_PER_S}
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by], "bound_by": by, "bytes_ms": ms["bytes"],
+            "operations_ms": ms["operations"], "weight_bytes": 4 * weights,
+            "bytes": nbytes, "operations": ops, "model_flops": model,
+            "model_flops_ms": 1e3 * model / FP32_OPS_PER_S}
+
+
+def encdec_inputs(cfg, batch, src_len, tokens, seed):
+    """Frame embeddings (batch, src_len, d_frontend) and target tokens
+    (batch, tokens), drawn with numpy from ``seed``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((batch, src_len, cfg.d_frontend))
+    toks = rng.integers(0, cfg.vocab, (batch, tokens))
+    return (torch.from_numpy(src.astype(np.float32)),
+            torch.from_numpy(toks.astype(np.int64)))
+
+
+def greedy_next(logits):
+    """The greedy next token (B, 1) of last-position logits (B, S, V)."""
+    import torch
+    return torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+
+
+def time_encdec(cfg, params, dev) -> dict:
+    """seamless full through the step builders: ``decode_step`` at batch 1
+    and 4 (against a cache from an ENCDEC_PREFIX-token prefill) and each
+    prefill of ENCDEC_PREFILLS at batch 1: median and spread of
+    SERVE_TIMING_REPS calls (CUDA events), the profiler's kernel time of
+    one call, the bound, and the greedy tokens/s of the median decode
+    step."""
+    import statistics
+
+    from repro_torch.distributed.steps import (make_decode_step,
+                                               make_prefill_step,
+                                               src_len_for)
+
+    decode = make_decode_step(cfg)
+
+    def row(fn, batch, src_len, tokens, cache_len, kv_len):
+        ms = event_times_ms(fn)
+        out = {"median_ms": statistics.median(ms), "min_ms": min(ms),
+               "max_ms": max(ms), "reps": len(ms),
+               "kernel_ms": device_busy_ms(fn, reps=1)}
+        out.update(encdec_bound_ms(cfg, batch, src_len, tokens, cache_len,
+                                   kv_len))
+        return out
+
+    out = {}
+    src_len = src_len_for(cfg, ENCDEC_CACHE_LEN)
+    prefill = make_prefill_step(cfg, cache_len=ENCDEC_CACHE_LEN)
+    for batch in (1, 4):
+        src, prefix = encdec_inputs(cfg, batch, src_len, ENCDEC_PREFIX, 7)
+        logits, cache = prefill(params, {"src_embeds": src.to(dev),
+                                         "tokens": prefix.to(dev)})
+        tok = greedy_next(logits)
+        r = row(lambda: decode(params, cache, tok), batch, src_len, 1,
+                ENCDEC_CACHE_LEN, ENCDEC_PREFIX + 1)
+        r["greedy_tokens_per_s"] = 1e3 * batch / r["median_ms"]
+        out[f"decode_b{batch}"] = r
+        del logits, cache
+    for tokens, cache_len in ENCDEC_PREFILLS:
+        frames = src_len_for(cfg, cache_len)
+        src, prefix = encdec_inputs(cfg, 1, frames, tokens, 8)
+        batch = {"src_embeds": src.to(dev), "tokens": prefix.to(dev)}
+        step = make_prefill_step(cfg, cache_len=cache_len)
+        out[f"prefill_{frames}x{tokens}_b1"] = row(
+            lambda: step(params, batch), 1, frames, tokens, cache_len, 0)
+    return out
+
+
+def train_encdec(cfg, params, dev) -> dict:
+    """ENCDEC_TRAIN_STEPS steps of ``make_train_step(cfg, adamw(3e-4))``
+    from ``params`` on ``SyntheticSeq2Seq`` data (seed 0: batch
+    ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ target tokens over
+    ``src_len_for(cfg, ENCDEC_TRAIN_SEQ)`` frames) through
+    ``ShardedLoader``; step 1's loss is held against ``encdec.train_loss``
+    on the same batch and weights (rel 1e-6), and every loss must be
+    finite.  The FLOP bound is ``3 × forward_flops`` (the reference's
+    training accounting) at the fp32 peak."""
+    import torch
+    from repro_torch.analysis import forward_flops
+    from repro_torch.data import ShardedLoader, SyntheticSeq2Seq
+    from repro_torch.distributed.steps import make_train_step, src_len_for
+    from repro_torch.models import encdec
+    from repro_torch.optim import adamw
+
+    B, S = ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ
+    src_len = src_len_for(cfg, S)
+    opt = adamw(3e-4)
+    step_fn = make_train_step(cfg, opt)
+    ds = SyntheticSeq2Seq(vocab=cfg.vocab, src_len=src_len, tgt_len=S,
+                          d_frontend=cfg.d_frontend, seed=0)
+    loader = ShardedLoader((ds.batch(B, i) for i in range(ENCDEC_TRAIN_STEPS)),
+                           dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = opt.init(params)
+    losses, step_s, first_ref = [], [], None
+    for i in range(ENCDEC_TRAIN_STEPS):
+        batch = next(loader)
+        if i == 0:
+            with torch.no_grad():
+                first_ref = float(encdec.train_loss(cfg, params, batch)[0])
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    del ds, loader
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"encdec train: non-finite loss {losses}")
+    rel = abs(losses[0] - first_ref) / abs(first_ref)
+    if rel > 1e-6:
+        raise AssertionError(f"encdec train: step 1's loss {losses[0]} vs "
+                             f"train_loss {first_ref} (rel {rel:.3e})")
+    steady = step_s[1:]
+    flops = 3 * forward_flops(cfg, B, S)
+    return {"batch": B, "target_len": S, "src_len": src_len,
+            "optimizer": "adamw(3e-4)", "losses": losses,
+            "train_loss_step1": first_ref, "step1_rel_gap": rel,
+            "step_s": step_s, "steady_step_s": sum(steady) / len(steady),
+            "target_tokens_per_s": B * S * len(steady) / sum(steady),
+            "flop_bound_ms": 1e3 * flops / FP32_OPS_PER_S, "flops": flops,
+            "peak_mem_gb": peak / 1e9}
+
+
+def run_encdec_path(dev):
+    """seamless-m4t-large-v2 full (12 encoder + 12 decoder layers, d_model
+    1024, 16 heads, d_ff 8192, vocab 256,206 padded to 256,256; random
+    weights from seed 0, fp32) served through ``steps.make_prefill_step`` /
+    ``make_decode_step`` — ``src_len_for(cfg, ENCDEC_CACHE_LEN)`` frame
+    embeddings and an ENCDEC_PREFIX-token target prefix at batch 1, then
+    ENCDEC_NEW greedy tokens — and trained for ENCDEC_TRAIN_STEPS AdamW
+    steps through ``make_train_step``, the codec's counts set to 0 just
+    before each and read just after (neither runs the codec, as in JAX).
+    A teacher-forced ``encdec._decoder_train`` over the prefix and the
+    served tokens, on the same memory, holds the served logits (within
+    ENCDEC_GAP of the largest |logit|, and the same argmax wherever the
+    forward's top-2 margin is over 10 times the gap); the decode step and
+    the prefills are timed beside their bound; then
+    ``check_encdec_smoke``."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.distributed.steps import (make_decode_step,
+                                               make_prefill_step,
+                                               src_len_for)
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.models import encdec
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = resolve(ENCDEC_ARCH).full
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = encdec.init(cfg, gen)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t_phase
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != encdec.count_params(cfg):
+        raise AssertionError(f"encdec: init drew {n_params} parameters, "
+                             f"count_params says {encdec.count_params(cfg)}")
+    src_len = src_len_for(cfg, ENCDEC_CACHE_LEN)
+    src, prefix = encdec_inputs(cfg, 1, src_len, ENCDEC_PREFIX, 0)
+    src, prefix = src.to(dev), prefix.to(dev)
+    prefill = make_prefill_step(cfg, cache_len=ENCDEC_CACHE_LEN)
+    decode = make_decode_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    allocated = torch.cuda.memory_allocated(dev)
+
+    tk.reset_launch_counts()            # the serving run's counts start here
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"src_embeds": src, "tokens": prefix})
+    served, tokens = [logits[:, -1, :]], []
+    for _ in range(ENCDEC_NEW):
+        tok = greedy_next(logits)
+        tokens.append(tok)
+        logits, cache = decode(params, cache, tok)
+        served.append(logits[:, -1, :])
+    torch.cuda.synchronize(dev)
+    serve_s = time.perf_counter() - t0
+    got = launch_counts()
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    if int(cache["pos"]) != ENCDEC_PREFIX + ENCDEC_NEW:
+        raise AssertionError(f"encdec: cache at {int(cache['pos'])}")
+    del cache
+
+    seq = torch.cat([prefix] + tokens, dim=1)
+    with torch.inference_mode():
+        memory = encdec.encode(cfg, params, src)
+        full = encdec._decoder_train(cfg, params, seq, memory)
+    # the prefill's last position and every decoded one, over the true
+    # vocabulary (not the -1e30 pad)
+    ref = full[0, ENCDEC_PREFIX - 1:, :cfg.vocab]
+    got_logits = torch.cat(served)[:, :cfg.vocab]
+    if not (torch.isfinite(got_logits).all() and torch.isfinite(ref).all()):
+        raise AssertionError("encdec: non-finite logits")
+    gap_abs = float((got_logits - ref).abs().max())
+    gap = gap_abs / float(ref.abs().max())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 10 * gap_abs
+    same = torch.argmax(got_logits, -1) == torch.argmax(ref, -1)
+    n_clear = int(clear.sum())
+    if gap > ENCDEC_GAP or not bool(same[clear].all()):
+        raise AssertionError(
+            f"encdec: served vs teacher-forced rel gap {gap:.3e} (limit "
+            f"{ENCDEC_GAP}); argmax differs at "
+            f"{int((~same & clear).sum())} of {n_clear} clear positions")
+    argmax_differs = [[i, float(top2[i, 0] - top2[i, 1])]
+                      for i in torch.nonzero(~same).flatten().tolist()]
+    del full, ref, got_logits, served, memory
+    timing = time_encdec(cfg, params, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tk.reset_launch_counts()            # the training run's counts start here
+    training = train_encdec(cfg, params, dev)
+    got = {n: c + got[n] for n, c in launch_counts().items()}
+    if any(got.values()):
+        raise AssertionError(f"encdec: the codec ran on the serving or "
+                             f"training path: {got}")
+    report = {
+        "model": cfg.name, "n_enc_layers": cfg.n_enc_layers,
+        "n_dec_layers": cfg.n_dec_layers, "d_model": cfg.d_model,
+        "params": n_params, "src_frames": src_len, "prefix": ENCDEC_PREFIX,
+        "cache_len": ENCDEC_CACHE_LEN, "new_tokens": ENCDEC_NEW,
+        "serve_s": serve_s, "tokens_per_s": ENCDEC_NEW / serve_s,
+        "served_vs_teacher_forced": {
+            "max_abs_gap": gap_abs, "rel_gap": gap,
+            "positions": len(same), "clear_positions": n_clear,
+            # positions (from the prefill's last) whose argmax differs, each
+            # with the forward's top-2 margin: all below 10 times the gap
+            "argmax_differs": argmax_differs},
+        "allocated_before_gb": allocated / 1e9,
+        "serve_peak_mem_gb": serve_peak / 1e9, "init_s": init_s,
+        "timing": timing, "training": training, "launches": got}
+    print("encdec path: " + json.dumps(report))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke = check_encdec_smoke(dev)
+    print(f"encdec path: {ENCDEC_NEW} greedy tokens, served vs "
+          f"teacher-forced rel gap {gap:.2e}, argmax equal at {n_clear} "
+          f"clear positions; {ENCDEC_TRAIN_STEPS} AdamW steps, losses "
+          f"{training['losses']}; smoke card vs CPU max rel "
+          f"{max(smoke.values()):.2e}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return got
+
+
+def check_encdec_smoke(dev) -> dict:
+    """seamless-smoke (one layer a side) and ENCDEC_SMOKE_PAD (two a side,
+    a padded vocabulary), each with the same weights on the card and on
+    the CPU: a prefill and 4 decode steps (both fed the CPU's greedy
+    tokens) — the logits and every cache leaf, each leaf's largest gap
+    over the CPU's largest |value| —, and one train step's loss and
+    gradients (``loss_and_grad``; the gradient as one vector), all within
+    ENCDEC_SMOKE_GAP.  Returns the largest gap of each check."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.core.rad import tree_map
+    from repro_torch.distributed.steps import loss_and_grad
+    from repro_torch.models import encdec
+
+    def rel(a, b):
+        a = torch.cat([t.to(torch.float64).flatten() for t in a])
+        b = torch.cat([t.to(torch.float64).flatten() for t in b])
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    cpu = torch.device("cpu")
+    out = {}
+    smoke = resolve(ENCDEC_ARCH).smoke
+    for cfg in (smoke, smoke.replace(**ENCDEC_SMOKE_PAD)):
+        params = encdec.init(cfg, torch.Generator().manual_seed(0))
+        src, toks = encdec_inputs(cfg, 2, 16, 17, 1)
+        batch = {"src_embeds": src, "tokens": toks[:, :-1],
+                 "labels": toks[:, 1:]}
+        sides, feed = {}, None
+        for side, d in (("cpu", cpu), ("card", dev)):
+            p = tree_map(lambda t: t.to(d), params)
+            logits, cache = encdec.prefill(cfg, p, src.to(d),
+                                           toks[:, :8].to(d), 16)
+            steps, caches, fed = [logits], [cache], []
+            for i in range(4):
+                tok = (greedy_next(logits) if feed is None
+                       else feed[i].to(d))
+                fed.append(tok.cpu())
+                logits, cache = encdec.decode_step(cfg, p, cache, tok)
+                steps.append(logits)
+                caches.append(cache)
+            feed = fed
+            loss, _, grads = loss_and_grad(
+                cfg, p, {k: v.to(d) for k, v in batch.items()})
+            sides[side] = {"serve": [t.cpu() for t in tree_leaves(
+                               {"logits": steps, "caches": caches})],
+                           "loss": [loss.cpu()],
+                           "grads": [t.cpu() for t in tree_leaves(grads)]}
+        card, host = sides["card"], sides["cpu"]
+        out[cfg.name] = {
+            "serve": max(rel([a], [b]) for a, b in zip(card["serve"],
+                                                       host["serve"])),
+            "loss": rel(card["loss"], host["loss"]),
+            "grads": rel(card["grads"], host["grads"])}
+    worst = {f"{n} {k}": v for n, g in out.items() for k, v in g.items()}
+    if max(worst.values()) > ENCDEC_SMOKE_GAP:
+        raise AssertionError(f"encdec smoke: card and CPU differ: {out}")
+    print("encdec smoke checks: " + json.dumps(
+        {"max_rel_gap_card_cpu": out, "limit": ENCDEC_SMOKE_GAP}))
+    return worst
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
@@ -2189,6 +2596,7 @@ def main() -> int:
     paths["serve"] = run_serve_path(dev)
     paths["serve hybrid"] = run_hybrid_serve_path(dev)
     paths["xlstm"] = run_xlstm_path(dev)
+    paths["encdec"] = run_encdec_path(dev)
     paths["entry points"] = run_entry_points(dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
     if not all(launches.values()):

@@ -1,15 +1,16 @@
 """Architecture configs.  ``load_all()`` imports every per-arch module so the
 registry is populated; ``repro_torch.configs.base.get_arch`` is the public
-lookup.  Ported so far: every config whose blocks the port has (dense, vlm,
-moe, hybrid and xlstm); the enc-dec config comes with ROADMAP Q1.3c."""
+lookup."""
 from .base import (ArchEntry, InputShape, INPUT_SHAPES, ModelCfg, REGISTRY,
                    get_arch, register)
 
 _LOADED = False
 
-ARCH_IDS = ["zamba2-7b", "deepseek-moe-16b", "mistral-nemo-12b",
-            "llama3-8b", "mixtral-8x7b", "stablelm-12b", "internvl2-2b",
-            "granite-3-8b", "xlstm-1_3b", "gpt2-xl"]
+ARCH_IDS = [
+    "zamba2-7b", "deepseek-moe-16b", "mistral-nemo-12b", "llama3-8b",
+    "mixtral-8x7b", "stablelm-12b", "internvl2-2b", "seamless-m4t-large-v2",
+    "granite-3-8b", "xlstm-1_3b", "gpt2-xl",
+]
 
 _MODULES = {
     "zamba2-7b": "zamba2_7b",
@@ -19,6 +20,7 @@ _MODULES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "stablelm-12b": "stablelm_12b",
     "internvl2-2b": "internvl2_2b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "granite-3-8b": "granite_3_8b",
     "xlstm-1_3b": "xlstm_1_3b",
     "gpt2-xl": "gpt2_xl",

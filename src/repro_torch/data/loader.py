@@ -2,8 +2,9 @@
 
 The JAX package's ``ShardedLoader`` lays each batch out per the step's
 input shardings.  On one card that is a copy to the device, so here the
-loader takes the device: each array arrives as a ``torch.long`` tensor
-(the index dtype of ``embed`` and ``cross_entropy``), through pinned host
+loader takes the device: each integer array arrives as a ``torch.long``
+tensor (the index dtype of ``embed`` and ``cross_entropy``), a floating one
+(the enc-dec's ``src_embeds``) in its own dtype, through pinned host
 memory and a non-blocking copy when the device is a card.
 """
 from __future__ import annotations
@@ -30,7 +31,9 @@ class ShardedLoader:
         cuda = self._device.type == "cuda"
         out = {}
         for k, v in host.items():
-            t = torch.from_numpy(np.ascontiguousarray(v)).to(torch.long)
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if not t.is_floating_point():
+                t = t.to(torch.long)
             if cuda:
                 t = t.pin_memory()
             out[k] = t.to(self._device, non_blocking=cuda)

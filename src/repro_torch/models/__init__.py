@@ -1,2 +1,3 @@
-"""Models on the training path: the dense decoder block and its OP-DAG."""
-from . import attention, causal_lm, layers, opgraph_models
+"""Model zoo: unified causal LM (dense/MoE/hybrid/xLSTM/VLM) + enc-dec."""
+from . import (attention, causal_lm, encdec, layers, moe, opgraph_models,
+               ssm, xlstm)

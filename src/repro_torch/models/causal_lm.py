@@ -15,7 +15,7 @@ groups: ``(groups, attn_every, ...)``, and the xLSTM groups' mLSTM blocks
 ``(groups, slstm_every - 1, ...)``), as in the JAX package, so the two
 packages' trees have the same key paths and shapes;
 :func:`repro_torch.models.scan_config.scan` runs them in a loop.  The
-encoder-decoder comes with ROADMAP Q1.3c.
+encoder-decoder is :mod:`repro_torch.models.encdec`.
 
 Entry points:
   ``init``          params (blocks stacked per segment)
@@ -51,8 +51,6 @@ from .layers import (cross_entropy, dense, dense_init, embed, embed_init,
                      mlp, mlp_init, norm_apply, norm_init)
 from .scan_config import scan, unstack
 
-_NOT_PORTED = {"encdec": "ROADMAP Q1.3c"}
-
 
 class Segment(NamedTuple):
     name: str       # params/cache key
@@ -78,10 +76,6 @@ def segments(cfg: ModelCfg) -> List[Segment]:
         if rem:
             segs.append(Segment("tail", "mlstm", rem))
         return segs
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"({_NOT_PORTED[cfg.family]})")
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

@@ -19,6 +19,7 @@ from repro.configs import ModelCfg as JModelCfg  # noqa: E402
 from repro.configs import resolve as j_resolve  # noqa: E402
 from repro.core.rad import single_device_loss_and_grad as j_sdlg  # noqa: E402
 from repro.models import causal_lm as j_lm  # noqa: E402
+from repro.models import encdec as j_ed  # noqa: E402
 from repro.models.opgraph_models import convnet_opgraph as j_convnet  # noqa: E402
 from repro_torch.checkpoint import from_numpy_tree, to_numpy_tree  # noqa: E402
 from repro_torch.configs import ModelCfg as TModelCfg  # noqa: E402
@@ -27,6 +28,7 @@ from repro_torch.core.opgraph import tree_leaves  # noqa: E402
 from repro_torch.core.rad import single_device_loss_and_grad as t_sdlg  # noqa: E402
 from repro_torch.distributed.steps import loss_and_grad  # noqa: E402
 from repro_torch.models import causal_lm as t_lm  # noqa: E402
+from repro_torch.models import encdec as t_ed  # noqa: E402
 from repro_torch.models import scan_config  # noqa: E402
 from repro_torch.models.opgraph_models import convnet_opgraph as t_convnet  # noqa: E402
 from test_torch_models import ATOL, CPU, RTOL, _assert_trees_close, _np_tree  # noqa: E402
@@ -108,7 +110,7 @@ def test_count_params_moe_arithmetic_and_unported_families():
     assert sum(t.numel() for t in tree_leaves(moe)) == \
         t_lm.count_params(TModelCfg(**kw))
     # the xLSTM family is ported (ROADMAP Q1.3b): its count is JAX's and
-    # what init draws; only the encoder-decoder raises, naming Q1.3c
+    # what init draws
     xl = dict(name="xl", family="xlstm", n_layers=5, d_model=64, n_heads=4,
               n_kv_heads=4, d_ff=0, vocab=64, slstm_every=2)
     assert [tuple(s) for s in t_lm.segments(TModelCfg(**xl))] == \
@@ -117,13 +119,25 @@ def test_count_params_moe_arithmetic_and_unported_families():
     assert t_lm.count_params(TModelCfg(**xl)) == \
         j_lm.count_params(JModelCfg(**xl)) == \
         sum(t.numel() for t in tree_leaves(drawn))
-    enc = TModelCfg(name="ed", family="encdec", n_layers=4, d_model=64,
-                    n_heads=4, n_kv_heads=4, d_ff=64, vocab=64,
-                    n_enc_layers=2)
-    for fn in (t_lm.segments, t_lm.count_params,
-               lambda c: t_lm.init(c, torch.Generator().manual_seed(0))):
-        with pytest.raises(NotImplementedError, match="ROADMAP Q1.3c"):
-            fn(enc)
+    # the encoder-decoder is ported (ROADMAP Q1.3c) as its own module, as
+    # in JAX: its count is JAX's and what encdec.init draws, and causal_lm
+    # refuses it with JAX's error
+    ed = dict(name="ed", family="encdec", n_layers=4, d_model=64, n_heads=4,
+              n_kv_heads=4, d_ff=64, vocab=64, n_enc_layers=2,
+              d_frontend=32)
+    drawn = t_ed.init(TModelCfg(**ed), torch.Generator().manual_seed(0))
+    assert t_ed.count_params(TModelCfg(**ed)) == \
+        j_ed.count_params(JModelCfg(**ed)) == \
+        sum(t.numel() for t in tree_leaves(drawn))
+    for t_fn, j_fn in (
+            (t_lm.segments, j_lm.segments),
+            (t_lm.count_params, j_lm.count_params),
+            (lambda c: t_lm.init(c, torch.Generator().manual_seed(0)),
+             lambda c: j_lm.init(c, jax.random.PRNGKey(0)))):
+        with pytest.raises(ValueError, match="unknown family 'encdec'"):
+            j_fn(JModelCfg(**ed))
+        with pytest.raises(ValueError, match="unknown family 'encdec'"):
+            t_fn(TModelCfg(**ed))
 
 
 # --------------------------------------------------------------- forward --

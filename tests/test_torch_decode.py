@@ -20,8 +20,10 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import ModelCfg as JModelCfg  # noqa: E402
+from repro.distributed import steps as j_steps  # noqa: E402
 from repro.models import attention as j_attn  # noqa: E402
 from repro.models import causal_lm as j_lm  # noqa: E402
+from repro.models import encdec as j_ed  # noqa: E402
 from repro_torch.checkpoint import from_numpy_tree, to_numpy_tree  # noqa: E402
 from repro_torch.configs.base import ModelCfg as TModelCfg  # noqa: E402
 from repro_torch.distributed import steps as t_steps  # noqa: E402
@@ -188,10 +190,12 @@ def test_cache_init_matches_jax_and_decodes(name):
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    """Only the encoder-decoder still raises, naming ROADMAP Q1.3c; the
-    xLSTM family (ported in Q1.3b; held in full in
-    ``tests/test_torch_xlstm_lm.py``) builds its cache and prefills as the
-    JAX package does."""
+    """No family raises any more.  The xLSTM family (ported in Q1.3b; held
+    in full in ``tests/test_torch_xlstm_lm.py``) builds its cache and
+    prefills as the JAX package does.  The encoder-decoder (Q1.3c; held in
+    full in ``tests/test_torch_encdec.py``) is served through the step
+    builders as in JAX, with JAX's logits and cache, and ``causal_lm``
+    refuses it with JAX's ``ValueError``."""
     kw = dict(name="xl", family="xlstm", n_layers=4, d_model=64, n_heads=4,
               n_kv_heads=4, d_ff=0, vocab=64, slstm_every=2)
     xl_j, xl_t = JModelCfg(**kw), TModelCfg(**kw)
@@ -204,14 +208,29 @@ def test_unported_families_raise_naming_the_roadmap():
     lt, ct = t_lm.prefill(xl_t, pt, torch.from_numpy(toks))
     _close(lt, lj)
     _assert_trees_close(ct, cj, rtol=RTOL, atol=CACHE_ATOL)
-    enc = TModelCfg(name="ed", family="encdec", n_layers=4, d_model=64,
-                    n_heads=4, n_kv_heads=4, d_ff=64, vocab=64,
-                    n_enc_layers=2)
-    for build in (lambda: t_steps.make_prefill_step(enc, 8),
-                  lambda: t_steps.make_decode_step(enc),
-                  lambda: t_lm.cache_init(enc, 1, 8, device=CPU)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Q1.3c"):
-            build()
+    ed = dict(name="ed", family="encdec", n_layers=4, d_model=64, n_heads=4,
+              n_kv_heads=4, d_ff=64, vocab=64, n_enc_layers=2, d_frontend=32)
+    ed_j, ed_t = JModelCfg(**ed), TModelCfg(**ed)
+    pj = j_ed.init(ed_j, jax.random.PRNGKey(0))
+    pt = from_numpy_tree(_np_tree(pj), CPU)
+    src = np.random.default_rng(1).standard_normal(
+        (2, 16, 32)).astype(np.float32)
+    lj, cj = j_steps.make_prefill_step(ed_j, 8)(
+        pj, {"src_embeds": jnp.asarray(src), "tokens": jnp.asarray(toks)})
+    lt, ct = t_steps.make_prefill_step(ed_t, 8)(
+        pt, {"src_embeds": torch.from_numpy(src),
+             "tokens": torch.from_numpy(toks)})
+    _close(lt, lj)
+    _assert_trees_close(ct, cj, rtol=RTOL, atol=CACHE_ATOL)
+    tok = np.array([[3], [5]], np.int32)
+    lj, cj = j_steps.make_decode_step(ed_j)(pj, cj, jnp.asarray(tok))
+    lt, ct = t_steps.make_decode_step(ed_t)(pt, ct, torch.from_numpy(tok))
+    _close(lt, lj)
+    _assert_trees_close(ct, cj, rtol=RTOL, atol=CACHE_ATOL)
+    with pytest.raises(ValueError, match="unknown family 'encdec'"):
+        j_lm.cache_init(ed_j, 1, 8)
+    with pytest.raises(ValueError, match="unknown family 'encdec'"):
+        t_lm.cache_init(ed_t, 1, 8, device=CPU)
 
 
 # ------------------------------------------------------------ moe family --

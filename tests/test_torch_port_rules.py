@@ -1,4 +1,5 @@
-"""Rules of the port: ``repro_torch`` imports neither JAX nor the JAX
+"""Rules of the port: ``repro_torch`` (and what runs it on the card:
+``chip_smoke.py`` and ``tools/``) imports neither JAX nor the JAX
 package, its kernels are built from the repository's sources, and its entry
 points run on ``cuda`` unless given another device."""
 import ast
@@ -24,15 +25,17 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_repro():
+    """The port, ``chip_smoke.py`` and the scripts of ``tools/`` all run on
+    the card, where there is no JAX."""
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20
+    tools = sorted((ROOT / "tools").glob("*.py"))
+    assert len(tools) >= 3
+    files += tools + [ROOT / "chip_smoke.py"]
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")]
     assert bad == []
-    smoke = ROOT / "chip_smoke.py"
-    assert [m for m in _imports(smoke)
-            if m.split(".")[0] in ("jax", "jaxlib", "repro")] == []
 
 
 def test_kernel_sources_live_in_the_port():

@@ -3,13 +3,16 @@
 
     python3 tools/decode_profile.py [--arch A] [--batch B] [--reps N] [--top K]
 
-Builds ``--arch`` (gpt2-xl, the default, zamba2-7b or xlstm-1_3b) at full
-width and depth (random weights from seed 0, fp32, TF32 off) on the card,
-prefills the prompt ``chip_smoke.py``'s phase for that model uses into its
-cache (gpt2-xl: 12 tokens into 64 slots; zamba2-7b: 128 tokens, one SSD
-chunk, into 512; xlstm-1_3b: 128 tokens into its recurrent states, which
-take no cache length), and runs ``causal_lm.decode_step`` ``--reps`` times
-under ``torch.profiler`` (CPU and CUDA activity).  It prints one JSON
+Builds ``--arch`` (gpt2-xl, the default, zamba2-7b, xlstm-1_3b or
+seamless-m4t-large-v2) at full width and depth (random weights from seed 0,
+fp32, TF32 off) on the card, prefills the prompt ``chip_smoke.py``'s phase
+for that model uses into its cache (gpt2-xl: 12 tokens into 64 slots;
+zamba2-7b: 128 tokens, one SSD chunk, into 512; xlstm-1_3b: 128 tokens into
+its recurrent states, which take no cache length; seamless-m4t-large-v2: an
+8-token target prefix into 512 slots over ``steps.src_len_for(cfg, 512)``
+= 64 frame embeddings drawn with numpy from seed 0), and runs the model's
+``decode_step`` (``steps.make_decode_step``) ``--reps`` times under
+``torch.profiler`` (CPU and CUDA activity).  It prints one JSON
 object: the step's span from CUDA events and its host time (both per
 step, median), the summed kernel time per step and its share of the span
 (how busy the card is), the count of top-level aten calls and of kernel
@@ -27,7 +30,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PROMPT_AND_CACHE = {"gpt2-xl": (12, 64), "zamba2-7b": (128, 512),
-                    "xlstm-1_3b": (128, 256)}
+                    "xlstm-1_3b": (128, 256),
+                    "seamless-m4t-large-v2": (8, 512)}
 
 
 def main(argv=None) -> int:
@@ -39,26 +43,35 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import resolve
     from repro_torch.device import resolve_device
-    from repro_torch.models import causal_lm
+    from repro_torch.distributed import steps
+    from repro_torch.models import causal_lm, encdec
 
     dev = resolve_device("cuda")
     cfg = resolve(args.arch).full
     n_prompt, cache_len = PROMPT_AND_CACHE[args.arch]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    params = causal_lm.init(cfg, gen)
+    model = encdec if cfg.family == "encdec" else causal_lm
+    params = model.init(cfg, gen)
     prompt = torch.randint(0, cfg.vocab, (args.batch, n_prompt),
                            generator=gen, device=dev)
-    logits, cache = causal_lm.prefill(cfg, params, prompt,
-                                      cache_len=cache_len)
+    batch = {"tokens": prompt}
+    if cfg.family == "encdec":
+        frames = np.random.default_rng(0).standard_normal(
+            (args.batch, steps.src_len_for(cfg, cache_len), cfg.d_frontend))
+        batch["src_embeds"] = torch.from_numpy(
+            frames.astype(np.float32)).to(dev)
+    logits, cache = steps.make_prefill_step(cfg, cache_len)(params, batch)
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+    decode = steps.make_decode_step(cfg)
 
     def step():
-        return causal_lm.decode_step(cfg, params, cache, tok)
+        return decode(params, cache, tok)
 
     for _ in range(3):
         step()
