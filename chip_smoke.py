@@ -111,10 +111,24 @@
    carried, counting their launches, and holds ``ef_compress`` bit-exact
    against the EF training step's own composition on the card and against
    the CPU's plain version;
-13. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
-   versions at every (boundary shape, k a block) that the training and
-   elastic paths gave them, derived from each step's plan;
-14. checks the output the repository's way: finite losses, RAD equal to
+13. drives the GPipe pipeline (``distributed.pipeline``) — gpt2-xl at full
+   width and depth, random weights from seed 0, fp32, batch 8 × 128 of
+   ``SyntheticLM`` in 4 micro-batches of 2, all eight mesh positions on
+   the card: on the ``(8,)`` model mesh (no compression) its loss and
+   gradients against ``make_train_step``'s autograd (rel 1e-6 / 1e-5 as
+   one vector); on the ``(2, 4)`` pod × model mesh with ``use_kernel=
+   "auto"`` one loss and gradient at base ratio 1 (the pod edge at ratio
+   3, k = 1,366 a block) and 4 AdamW steps at base ratio 10 (ratio 30, k
+   = 137), each call held to 8 encodes and 8 decodes (4 micro-batches,
+   forward and backward, on edge 3 -> 4), one more step under the
+   profiler (the codec's share of the kernel time), then 3 gspmd steps
+   from the same weights and AdamW state; it prints the steady step
+   seconds, tokens/s, peak memory, the FLOP bound (``analysis.roofline``
+   at the fp32 peak) and the gspmd step beside it;
+14. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
+   versions at every (boundary shape, k a block) that the training,
+   elastic and pipeline paths gave them, derived from each step's plan;
+15. checks the output the repository's way: finite losses, RAD equal to
     single-device autograd on the card at smoke size, the card's loss
     curves (plain and error-feedback) against the CPU's on the same
     weights, gpt2-smoke through ``train_gspmd`` on the card against the
@@ -128,7 +142,10 @@
     simulated reports), and the moe smoke model through 3 stages (staged
     equal to monolithic bit for bit on the card, logits within rel 1e-5 of
     the CPU's), and zamba2-smoke on the card against the CPU (a prefill, 4
-    decode steps, the forward and the loss within rel 1e-5).
+    decode steps, the forward and the loss within rel 1e-5), and the
+    pipeline at the JAX reference test's sizes (gpt2-smoke with 8 layers,
+    8 × 32, 4 micro-batches) on the card against the CPU (uncompressed
+    loss and gradients, compressed loss, within rel 1e-5).
 
 Every phase raises on failure (exit code 1).  Without a CUDA device, or
 without ``src/repro_torch`` beside it, it exits with code 2 and prints no
@@ -2559,6 +2576,275 @@ def check_encdec_smoke(dev) -> dict:
     return worst
 
 
+PIPE_MICRO = 4              # GPipe micro-batches: 2 sequences each
+PIPE_STEPS = 4              # AdamW steps at base ratio 10
+PIPE_BASE_RATIOS = (1.0, 10.0)  # Eq. 7's pod edge 3r: k 1,366 / 137 a block
+PIPE_GSPMD_STEPS = 3        # gspmd steps beside it, same weights and state
+PIPE_LOSS_GAP = 1e-6        # uncompressed pipeline vs autograd, loss, rel
+PIPE_GRAD_GAP = 1e-5        # ... gradients as one vector, rel
+PIPE_SMOKE_GAP = 1e-5       # smoke pipeline, card vs CPU, rel
+
+
+def vector_gap(a_tree, b_tree) -> float:
+    """|a - b| / |b| over every leaf of two trees as one vector (float64
+    sums)."""
+    from repro_torch.core.opgraph import tree_leaves
+    num = den = 0.0
+    for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+        d = a.double() - b.to(a.device).double()
+        num += float((d * d).sum())
+        den += float((b.double() * b.double()).sum())
+    return math.sqrt(num / den)
+
+
+def step_device_ms(fn) -> dict:
+    """One call of ``fn`` under the profiler (CUDA activity): the summed
+    kernel time, and the time and launches of the codec's encode and
+    decode kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"device_ms": 0.0, "encode_ms": 0.0, "encode_launches": 0,
+           "decode_ms": 0.0, "decode_launches": 0}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t = (getattr(ev, "self_device_time_total", 0) or 0) / 1e3
+        out["device_ms"] += t
+        for part in ("encode", "decode"):
+            if f"{part}_kernel" in ev.key:
+                out[f"{part}_ms"] += t
+                out[f"{part}_launches"] += ev.count
+    out["codec_ms"] = out["encode_ms"] + out["decode_ms"]
+    out["codec_launches"] = out["encode_launches"] + out["decode_launches"]
+    return out
+
+
+def run_pipeline_path(dev):
+    """gpt2-xl full (48 layers, d_model 1600; seed 0, fp32, TF32 off)
+    through the GPipe pipeline (``distributed.pipeline``), batch BATCH ×
+    SEQ of ``SyntheticLM`` in PIPE_MICRO micro-batches, every mesh
+    position on this card:
+
+    1. the ``(8,)`` ``("model",)`` mesh (no compression): loss and
+       gradients against ``make_train_step``'s autograd (``loss_and_grad``)
+       on the same weights and batch, within PIPE_LOSS_GAP / PIPE_GRAD_GAP;
+    2. the ``(2, 4)`` ``("pod", "model")`` mesh with ``use_kernel="auto"``:
+       one loss and gradient at base ratio 1 (edge 3 -> 4 at ratio 3), then
+       PIPE_STEPS AdamW(3e-4) steps at base ratio 10 (ratio 30), composed
+       as ``make_pipeline_train_step`` composes them, and one more step
+       under the profiler (the codec's share of the step's kernel time);
+       every call must launch 8 encodes and 8 decodes (4 micro-batches,
+       forward and backward, on one edge);
+    3. PIPE_GSPMD_STEPS steps of ``make_train_step`` from the same weights
+       and AdamW state, timed the same way: the gspmd step beside it.
+
+    The codec's counts are set to 0 just before 1 and read after 2.
+    Returns (launch counts, the codec's (shape, k a block) cases)."""
+    import torch
+    from repro_torch.analysis import model_flops
+    from repro_torch.analysis.roofline import HW, roofline_terms
+    from repro_torch.configs import InputShape, resolve
+    from repro_torch.core.compression import ratio_to_k
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import pipeline as pipe
+    from repro_torch.distributed.steps import (loss_and_grad, make_train_step,
+                                               value_and_grad)
+    from repro_torch.kernels import ops, topk_compress as tk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import causal_lm
+    from repro_torch.optim import adamw
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = resolve("gpt2-xl").full
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = causal_lm.init(cfg, gen)
+    n_params = causal_lm.count_params(cfg)
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0, order=1)
+
+    def batch_at(i):
+        return {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                for k, v in ds.batch(BATCH, i).items()}
+
+    codec = ("encode_topk", "decode_topk")
+    expect = {n: 8 if n in codec else 0 for n in tk.KERNELS}
+
+    def delta(before):
+        now = launch_counts()
+        return {n: now[n] - before[n] for n in now}
+
+    batch = batch_at(0)
+    tk.reset_launch_counts()            # this path's counts start here
+    flat = make_mesh((8,), ("model",), [dev] * 8)
+    fn = pipe.make_pipeline_train_fn(cfg, flat, PIPE_MICRO)
+    mb = pipe.microbatch(batch, PIPE_MICRO)
+    loss_p, g_p = value_and_grad(lambda p: fn(p, mb), params)
+    loss_r, _, g_r = loss_and_grad(cfg, params, batch)
+    loss_gap = abs(float(loss_p) - float(loss_r)) / abs(float(loss_r))
+    grad_gap = vector_gap(g_p, g_r)
+    del g_p, g_r
+    if any(launch_counts().values()):
+        raise AssertionError(f"pipeline: the uncompressed mesh ran the "
+                             f"codec: {launch_counts()}")
+    if loss_gap > PIPE_LOSS_GAP or grad_gap > PIPE_GRAD_GAP:
+        raise AssertionError(f"pipeline: uncompressed vs autograd: loss "
+                             f"{float(loss_p)} vs {float(loss_r)} (rel "
+                             f"{loss_gap:.3e}), gradients rel {grad_gap:.3e}")
+
+    pod = make_mesh((2, 4), ("pod", "model"), [dev] * 8)
+    n = BATCH // PIPE_MICRO * SEQ * cfg.d_model
+    shape = (BATCH // PIPE_MICRO, SEQ, cfg.d_model)
+    cases, ks = set(), {}
+    for base in PIPE_BASE_RATIOS:
+        ratio = float(pipe.pod_edge_ratios(pod, base).max())
+        ks[base] = ops.per_block_k(n, ratio_to_k(n, ratio))
+        cases.add((shape, ks[base]))
+    fns = {base: pipe.make_pipeline_train_fn(cfg, pod, PIPE_MICRO, base,
+                                             use_kernel="auto")
+           for base in PIPE_BASE_RATIOS}
+    c0 = launch_counts()
+    loss_1, g_1 = value_and_grad(lambda p: fns[1.0](p, mb), params)
+    del g_1
+    if delta(c0) != expect or not math.isfinite(float(loss_1)):
+        raise AssertionError(f"pipeline base ratio 1: launches "
+                             f"{delta(c0)}, expected {expect}; loss "
+                             f"{float(loss_1)}")
+
+    opt = adamw(3e-4)
+    state = opt.init(params)
+    loss_fn = fns[10.0]
+
+    def step(params, state, mb):
+        loss, grads = value_and_grad(lambda p: loss_fn(p, mb), params)
+        params, state = opt.update(grads, state, params)
+        return params, state, loss
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = [], []
+    for i in range(PIPE_STEPS):
+        mb = pipe.microbatch(batch_at(i), PIPE_MICRO)
+        c0 = launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, mb)
+        torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if delta(c0) != expect:
+            raise AssertionError(f"pipeline step {i}: launches "
+                                 f"{delta(c0)}, expected {expect}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"pipeline: non-finite loss {losses}")
+    mb = pipe.microbatch(batch_at(PIPE_STEPS), PIPE_MICRO)
+    c0 = launch_counts()
+    held = {}
+
+    def profiled():
+        held["out"] = step(params, state, mb)
+
+    prof = step_device_ms(profiled)
+    params, state, _ = held.pop("out")
+    if delta(c0) != expect or prof["codec_launches"] not in (0, 16):
+        raise AssertionError(f"pipeline profiled step: launches "
+                             f"{delta(c0)}, profiler {prof}")
+    got = launch_counts()
+
+    gspmd = make_train_step(cfg, opt)
+    gspmd_s = []
+    for i in range(PIPE_GSPMD_STEPS):
+        b = batch_at(PIPE_STEPS + 1 + i)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, state, _ = gspmd(params, state, b)
+        torch.cuda.synchronize(dev)
+        gspmd_s.append(time.perf_counter() - t0)
+
+    steady = step_s[1:]
+    flops = model_flops(cfg, InputShape("pipeline", SEQ, BATCH, "train"))
+    # the update reads parameters, gradients and both moments and writes
+    # parameters and moments, once each; the hand-offs stay on the card
+    bound = roofline_terms(flops, 7 * 4 * n_params, 0.0, hw=HW.fp32())
+    report = {
+        "card": card_line(),
+        "mesh": "(2, 4) pod x model on one card", "micro_batches": PIPE_MICRO,
+        "micro_batch": BATCH // PIPE_MICRO, "seq": SEQ,
+        "uncompressed": {"loss": float(loss_p), "autograd_loss":
+                         float(loss_r), "loss_rel_gap": loss_gap,
+                         "grad_rel_gap": grad_gap},
+        "base_ratio_1_loss": float(loss_1),
+        "k_per_block": {str(b): k for b, k in ks.items()},
+        "losses": losses, "step_s": step_s,
+        "steady_step_s": sum(steady) / len(steady),
+        "tokens_per_s": BATCH * SEQ * len(steady) / sum(steady),
+        "peak_mem_gb": peak / 1e9,
+        "profiled_step": {**prof, "codec_share_of_device": (
+            prof["codec_ms"] / prof["device_ms"] if prof["device_ms"]
+            else None)},
+        "flops": flops, "flop_bound_ms": 1e3 * bound.bound_time,
+        "bound_by": bound.dominant,
+        "gspmd_step_s": gspmd_s,
+        "gspmd_steady_step_s": sum(gspmd_s[1:]) / len(gspmd_s[1:]),
+        "launches": got}
+    print("pipeline path: " + json.dumps(report))
+    del params, state, gspmd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, cases
+
+
+def check_pipeline_smoke(dev) -> dict:
+    """The reference test's sizes (gpt2-smoke with 8 layers, batch 8 × seq
+    32, 4 micro-batches), the same weights on the card and on the CPU: on
+    the ``(8,)`` model mesh the loss and the gradients (one vector), on the
+    ``(2, 4)`` pod mesh at base ratio 10 with ``use_kernel="auto"`` (the
+    CUDA kernels on the card, their plain versions on the CPU) the loss,
+    all within PIPE_SMOKE_GAP."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core.rad import tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import pipeline as pipe
+    from repro_torch.distributed.steps import value_and_grad
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import causal_lm
+
+    cfg = resolve("gpt2-xl").smoke.replace(n_layers=8, max_seq=32)
+    params = causal_lm.init(cfg, torch.Generator().manual_seed(0))
+    raw = SyntheticLM(vocab=cfg.vocab, seq_len=32, seed=1, order=1).batch(8, 0)
+    out = {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = tree_map(lambda t: t.to(d), params)
+        mb = pipe.microbatch({k: torch.as_tensor(v, dtype=torch.long,
+                                                 device=d)
+                              for k, v in raw.items()}, PIPE_MICRO)
+        flat = make_mesh((8,), ("model",), [d] * 8)
+        pod = make_mesh((2, 4), ("pod", "model"), [d] * 8)
+        fn = pipe.make_pipeline_train_fn(cfg, flat, PIPE_MICRO)
+        loss, grads = value_and_grad(lambda q: fn(q, mb), p)
+        with torch.no_grad():
+            comp = pipe.make_pipeline_train_fn(cfg, pod, PIPE_MICRO, 10.0,
+                                               use_kernel="auto")(p, mb)
+        out[side] = (float(loss), grads, float(comp))
+    (lc, gc_, cc), (lx, gx, cx) = out["card"], out["cpu"]
+    gaps = {"loss": abs(lc - lx) / abs(lx), "grads": vector_gap(gc_, gx),
+            "compressed_loss": abs(cc - cx) / abs(cx)}
+    if max(gaps.values()) > PIPE_SMOKE_GAP:
+        raise AssertionError(f"pipeline smoke: card and CPU differ: {gaps} "
+                             f"(losses card {lc}, {cc}; cpu {lx}, {cx})")
+    print("pipeline smoke checks: " + json.dumps(
+        {"max_rel_gap_card_cpu": gaps, "limit": PIPE_SMOKE_GAP,
+         "losses": {"card": [lc, cc], "cpu": [lx, cx]}}))
+    return gaps
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
@@ -2598,19 +2884,22 @@ def main() -> int:
     paths["xlstm"] = run_xlstm_path(dev)
     paths["encdec"] = run_encdec_path(dev)
     paths["entry points"] = run_entry_points(dev)
+    paths["train pipeline"], pipeline_cases = run_pipeline_path(dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on its path: "
                              f"{launches}")
     if not elastic_cases or not cases:
         raise AssertionError("a training path ran no compressed boundary")
-    for name, e in check_path_cases(dev, cases | elastic_cases).items():
+    for name, e in check_path_cases(
+            dev, cases | elastic_cases | pipeline_cases).items():
         err[name] = max(err[name], e)
     check_against_reference(dev)
     check_gspmd_smoke(dev)
     check_elastic_smoke(dev)
     check_serve_smoke(dev)
     check_hybrid_smoke(dev)
+    check_pipeline_smoke(dev)
 
     main_shape = timing[(BATCH, SEQ, 1600)]
     kernels = []

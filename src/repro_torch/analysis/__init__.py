@@ -1,3 +1,3 @@
-"""Analytic model FLOPs.  The HLO and roofline analyses of the JAX package
-come with ROADMAP Q1.4."""
+"""Analytic model FLOPs and roofline terms.  The HLO analysis of the JAX
+package comes with ROADMAP Q1.4b."""
 from .model_flops import forward_flops, model_flops, six_nd

@@ -8,9 +8,12 @@ decode steps call the model's ``prefill`` / ``decode_step`` eagerly:
 family (the hybrid and xLSTM included: they are served this way, never
 stage-sharded).
 
-The abstract inputs (:func:`input_specs`, :func:`decode_state_specs`) are
-tensors on the ``meta`` device, in the JAX package's trees.  The shardings
-and ``build_jitted`` come with ROADMAP Q1.4.
+The abstract inputs (:func:`input_specs`, :func:`decode_state_specs`,
+:func:`abstract_params`) are tensors on the ``meta`` device, in the JAX
+package's trees.  :func:`cache_shardings` and :func:`batch_shardings` give
+the JAX package's specs over a :class:`~repro_torch.distributed.sharding.Mesh`;
+:func:`build_jitted` assembles a step, its abstract arguments and the
+parameters' shardings as the JAX package's does, and runs on one device.
 
 Step kinds per input shape:
 * train_4k    -> ``train_step(params, opt_state, batch)``
@@ -29,6 +32,9 @@ from repro_torch.core.opgraph import tree_leaves
 from repro_torch.core.rad import tree_map
 from repro_torch.models import causal_lm, encdec
 from repro_torch.optim import Optimizer, clip_by_global_norm
+from .params import (batch_spec, generic_spec, param_shardings,
+                     tree_map_with_path, tree_path_str)
+from .sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 # ============================================================ input specs ==
@@ -78,18 +84,93 @@ def decode_state_specs(cfg: ModelCfg, shape: InputShape) -> Any:
     return causal_lm.cache_init(cfg, B, S, device="meta")
 
 
+# ======================================================== cache shardings ==
+def cache_shardings(cache_shapes: Any, mesh: Mesh, global_batch: int) -> Any:
+    """Path-aware sharding for decode caches.
+
+    KV caches shard batch + head_dim over model; SSM/xLSTM states shard
+    batch + the widest feature dim over model.  Anything indivisible
+    replicates — correctness never depends on these choices.
+    """
+    bspec = batch_spec(global_batch, mesh)
+    baxes = bspec[0] if len(bspec) and bspec[0] is not None else None
+    msz = mesh.shape["model"] if "model" in mesh.axis_names else 1
+
+    def shard_dim(spec, shape, idx, axis, size):
+        if size > 1 and shape[idx] % size == 0 and shape[idx] >= size:
+            spec[idx] = axis
+
+    def rule(path, leaf):
+        pstr = tree_path_str(path)
+        name = pstr.rsplit("/", 1)[-1]
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        spec: list = [None] * nd
+        in_slstm = "/s/" in pstr or pstr.endswith("/s")
+
+        def setb(idx):
+            if baxes is not None and nd >= -idx and shape[idx] == global_batch:
+                spec[idx] = baxes
+
+        if name == "pos" or nd == 0:
+            return NamedSharding(mesh, P())
+        if name in ("k", "v", "xk", "xv"):
+            # not the sequence dim, which decode writes at a traced position
+            setb(-4)
+            shard_dim(spec, shape, -1, "model", msz)      # head_dim
+        elif name == "h" and not in_slstm:                # mamba state
+            setb(-4)
+            shard_dim(spec, shape, -3, "model", msz)      # ssm heads
+        elif name == "conv":
+            setb(-3)
+            shard_dim(spec, shape, -1, "model", msz)      # channels
+        elif name == "C":                                  # mLSTM matrix mem
+            setb(-4)
+            shard_dim(spec, shape, -1, "model", msz)
+        elif name in ("n", "c", "h", "m"):                 # vector states
+            setb(-3)
+            shard_dim(spec, shape, -1, "model", msz)
+        return NamedSharding(mesh, P(*spec))
+
+    return tree_map_with_path(rule, cache_shapes)
+
+
+def batch_shardings(batch_shapes: Dict[str, torch.Tensor], mesh: Mesh,
+                    global_batch: int) -> Dict[str, Any]:
+    bspec = batch_spec(global_batch, mesh)
+
+    def rule(_, leaf):
+        spec = list(bspec) + [None] * (leaf.dim() - len(bspec))
+        return NamedSharding(mesh, P(*spec[:leaf.dim()]))
+
+    return tree_map_with_path(rule, batch_shapes)
+
+
 # ================================================================== steps ==
+def value_and_grad(fn: Callable, params, has_aux: bool = False):
+    """``jax.value_and_grad`` by autograd: ``(fn(params), grads)``, or with
+    ``has_aux`` ``((loss, aux), grads)`` for an ``fn`` returning (loss,
+    aux); grads has params' key paths, and nothing returned holds the
+    graph."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        out = fn(leaves)
+    loss = out[0] if has_aux else out
+    flat = tree_leaves(leaves)
+    grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
+    grads = tree_map(lambda p: grads[id(p)], leaves)
+    if has_aux:
+        return (loss.detach(), tree_map(lambda v: v.detach(), out[1])), grads
+    return loss.detach(), grads
+
+
 def loss_and_grad(cfg: ModelCfg, params, batch):
     """(loss, metrics, grads) of the model's ``train_loss`` at ``params``;
     grads has params' key paths."""
     model = encdec if cfg.family == "encdec" else causal_lm
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    with torch.enable_grad():
-        loss, metrics = model.train_loss(cfg, leaves, batch)
-    flat = tree_leaves(leaves)
-    grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            tree_map(lambda p: grads[id(p)], leaves))
+    (loss, metrics), grads = value_and_grad(
+        lambda p: model.train_loss(cfg, p, batch), params, has_aux=True)
+    return loss, metrics, grads
 
 
 def make_train_step(cfg: ModelCfg, optimizer: Optimizer,
@@ -139,3 +220,79 @@ def make_decode_step(cfg: ModelCfg, window: Optional[int] = None) -> Callable:
             return causal_lm.decode_step(cfg, params, cache, tokens,
                                          window=window)
     return serve_step
+
+
+# ============================================================== assembler ==
+def abstract_params(cfg: ModelCfg) -> Any:
+    """The parameter tree as ``meta`` tensors: shapes and dtypes, nothing
+    allocated (a CPU generator, drawing nowhere)."""
+    mod = encdec if cfg.family == "encdec" else causal_lm
+    return mod.init(cfg, torch.Generator().manual_seed(0), device="meta")
+
+
+def _abstract(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
+                 optimizer: Optional[Optimizer] = None,
+                 param_overrides: Optional[Dict[str, P]] = None,
+                 remat: bool = False):
+    """Assemble the step + abstract example args for one (arch ×
+    input-shape × mesh).  Returns ``(fn, args, meta)`` as the JAX package's
+    does: ``args`` are ``meta`` tensors (params, then the optimizer state and
+    batch of a train step, the batch of a prefill, or the cache and tokens
+    of a decode step); ``meta["param_sh"]`` holds the parameters'
+    shardings, ``meta["in_shardings"]`` those of every argument, as the JAX
+    package jits the step with them (and ``meta["cache_sh"]`` those of the
+    cache a prefill returns).
+
+    ``fn`` is the eager step.  Nothing is jitted: PyTorch runs the step as
+    written, with no trace to compile against the shardings.  Nothing is
+    donated: the step returns new tensors and writes none of its inputs, so
+    there is no buffer for it to reuse.  ``remat`` changes nothing, as in
+    JAX (the model checkpoints its blocks by ``cfg.remat``).  A mesh whose
+    positions hold several distinct devices raises ``NotImplementedError``:
+    placing shards across cards needs DTensor and a process group, which
+    the port does not have."""
+    del remat
+    if len(mesh.distinct_devices()) > 1:
+        raise NotImplementedError(
+            f"build_jitted on {mesh!r}: the port runs a step on one device "
+            f"and places no shards across several")
+    from repro_torch.optim import adafactor
+    optimizer = optimizer or adafactor(1e-3)
+    p_abs = abstract_params(cfg)
+    p_sh = param_shardings(p_abs, mesh, overrides=param_overrides)
+    B = shape.global_batch
+
+    if shape.kind == "train":
+        opt_abs = tree_map_with_path(lambda _, t: _abstract(t),
+                                     optimizer.init(p_abs))
+        opt_sh = tree_map_with_path(
+            lambda _, t: NamedSharding(mesh, generic_spec(tuple(t.shape),
+                                                          mesh)), opt_abs)
+        batch_abs = input_specs(cfg, shape)
+        b_sh = batch_shardings(batch_abs, mesh, B)
+        return (make_train_step(cfg, optimizer), (p_abs, opt_abs, batch_abs),
+                {"param_sh": p_sh, "in_shardings": (p_sh, opt_sh, b_sh)})
+
+    if shape.kind == "prefill":
+        batch_abs = input_specs(cfg, shape)
+        b_sh = batch_shardings(batch_abs, mesh, B)
+        c_sh = cache_shardings(decode_state_specs(cfg, shape), mesh, B)
+        fn = make_prefill_step(cfg, cache_len=shape.seq_len,
+                               window=cfg.window)
+        return fn, (p_abs, batch_abs), {"param_sh": p_sh,
+                                        "in_shardings": (p_sh, b_sh),
+                                        "cache_sh": c_sh}
+
+    # decode
+    cache_abs = decode_state_specs(cfg, shape)
+    c_sh = cache_shardings(cache_abs, mesh, B)
+    tok_abs = _spec((B, 1), torch.int32)
+    t_sh = batch_shardings({"t": tok_abs}, mesh, B)["t"]
+    fn = make_decode_step(cfg, window=decode_window(cfg, shape))
+    return fn, (p_abs, cache_abs, tok_abs), {"param_sh": p_sh,
+                                             "in_shardings": (p_sh, c_sh,
+                                                              t_sh)}

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
-from .layers import apply_rope, dense, dense_init
+from .layers import apply_rope, dense, dense_init, init_device
 
 NEG_INF = -1e30
 
@@ -32,15 +32,16 @@ class KVCache(NamedTuple):
 
 def attn_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
               head_dim: int, dtype=torch.float32,
-              qkv_bias: bool = False) -> Dict[str, Any]:
+              qkv_bias: bool = False, *, device=None) -> Dict[str, Any]:
     gq, gk, gv, go = split_generator(gen, 4)
-    p = {"wq": dense_init(gq, d, n_heads * head_dim, dtype),
-         "wk": dense_init(gk, d, n_kv * head_dim, dtype),
-         "wv": dense_init(gv, d, n_kv * head_dim, dtype),
+    dev = init_device(gen, device)
+    p = {"wq": dense_init(gq, d, n_heads * head_dim, dtype, device=dev),
+         "wk": dense_init(gk, d, n_kv * head_dim, dtype, device=dev),
+         "wv": dense_init(gv, d, n_kv * head_dim, dtype, device=dev),
          "wo": dense_init(go, n_heads * head_dim, d, dtype,
-                          scale=1.0 / math.sqrt(n_heads * head_dim))}
+                          scale=1.0 / math.sqrt(n_heads * head_dim),
+                          device=dev)}
     if qkv_bias:
-        dev = gen.device
         p["bq"] = torch.zeros(n_heads * head_dim, dtype=dtype, device=dev)
         p["bk"] = torch.zeros(n_kv * head_dim, dtype=dtype, device=dev)
         p["bv"] = torch.zeros(n_kv * head_dim, dtype=dtype, device=dev)

@@ -48,7 +48,7 @@ from . import moe as moe_mod
 from . import ssm
 from . import xlstm as xl
 from .layers import (cross_entropy, dense, dense_init, embed, embed_init,
-                     mlp, mlp_init, norm_apply, norm_init)
+                     init_device, mlp, mlp_init, norm_apply, norm_init)
 from .scan_config import scan, unstack
 
 
@@ -96,69 +96,73 @@ def _norm(cfg: ModelCfg, dev):
     return norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, device=dev)
 
 
-def _dense_block_init(gen, cfg: ModelCfg):
+def _dense_block_init(gen, cfg: ModelCfg, dev=None):
+    dev = init_device(gen, dev)
     g1, g2 = split_generator(gen, 2)
-    return {"ln1": _norm(cfg, gen.device),
+    return {"ln1": _norm(cfg, dev),
             "attn": attn.attn_init(g1, cfg.d_model, cfg.n_heads,
                                    cfg.n_kv_heads, cfg.head_dim,
-                                   cfg.param_dtype, cfg.qkv_bias),
-            "ln2": _norm(cfg, gen.device),
+                                   cfg.param_dtype, cfg.qkv_bias, device=dev),
+            "ln2": _norm(cfg, dev),
             "mlp": mlp_init(g2, cfg.d_model, cfg.d_ff, cfg.act,
-                            cfg.param_dtype)}
+                            cfg.param_dtype, device=dev)}
 
 
-def _moe_block_init(gen, cfg: ModelCfg):
+def _moe_block_init(gen, cfg: ModelCfg, dev):
     g1, g2 = split_generator(gen, 2)
-    return {"ln1": _norm(cfg, gen.device),
+    return {"ln1": _norm(cfg, dev),
             "attn": attn.attn_init(g1, cfg.d_model, cfg.n_heads,
                                    cfg.n_kv_heads, cfg.head_dim,
-                                   cfg.param_dtype, cfg.qkv_bias),
-            "ln2": _norm(cfg, gen.device),
+                                   cfg.param_dtype, cfg.qkv_bias, device=dev),
+            "ln2": _norm(cfg, dev),
             "moe": moe_mod.moe_init(g2, cfg.d_model, cfg.d_ff, cfg.n_experts,
                                     cfg.n_shared_experts,
-                                    dtype=cfg.param_dtype)}
+                                    dtype=cfg.param_dtype, device=dev)}
 
 
-def _mamba_block_init(gen, cfg: ModelCfg):
-    return {"ln": _norm(cfg, gen.device),
-            "mamba": ssm.mamba_init(gen, _mamba_cfg(cfg), cfg.param_dtype)}
+def _mamba_block_init(gen, cfg: ModelCfg, dev):
+    return {"ln": _norm(cfg, dev),
+            "mamba": ssm.mamba_init(gen, _mamba_cfg(cfg), cfg.param_dtype,
+                                    device=dev)}
 
 
-def _zamba_group_init(gen, cfg: ModelCfg):
-    return _stack_init(lambda r: _mamba_block_init(r, cfg), gen,
+def _zamba_group_init(gen, cfg: ModelCfg, dev):
+    return _stack_init(lambda r: _mamba_block_init(r, cfg, dev), gen,
                        cfg.attn_every)
 
 
-def _shared_attn_init(gen, cfg: ModelCfg):
+def _shared_attn_init(gen, cfg: ModelCfg, dev):
     """Zamba2 shared transformer block: attention + MLP (the assigned
     d_ff=14336 lives here), weights reused across invocations."""
     g1, g2 = split_generator(gen, 2)
-    p = {"ln": _norm(cfg, gen.device),
+    p = {"ln": _norm(cfg, dev),
          "attn": attn.attn_init(g1, cfg.d_model, cfg.n_heads,
                                 cfg.n_kv_heads, cfg.head_dim,
-                                cfg.param_dtype)}
+                                cfg.param_dtype, device=dev)}
     if cfg.d_ff > 0:
-        p["ln2"] = _norm(cfg, gen.device)
+        p["ln2"] = _norm(cfg, dev)
         p["mlp"] = mlp_init(g2, cfg.d_model, cfg.d_ff, cfg.act,
-                            cfg.param_dtype)
+                            cfg.param_dtype, device=dev)
     return p
 
 
-def _mlstm_block_init(gen, cfg: ModelCfg):
-    return {"ln": _norm(cfg, gen.device),
-            "mlstm": xl.mlstm_init(gen, _xlstm_cfg(cfg), cfg.param_dtype)}
+def _mlstm_block_init(gen, cfg: ModelCfg, dev):
+    return {"ln": _norm(cfg, dev),
+            "mlstm": xl.mlstm_init(gen, _xlstm_cfg(cfg), cfg.param_dtype,
+                                   device=dev)}
 
 
-def _slstm_block_init(gen, cfg: ModelCfg):
-    return {"ln": _norm(cfg, gen.device),
-            "slstm": xl.slstm_init(gen, _xlstm_cfg(cfg), cfg.param_dtype)}
+def _slstm_block_init(gen, cfg: ModelCfg, dev):
+    return {"ln": _norm(cfg, dev),
+            "slstm": xl.slstm_init(gen, _xlstm_cfg(cfg), cfg.param_dtype,
+                                   device=dev)}
 
 
-def _xlstm_group_init(gen, cfg: ModelCfg):
+def _xlstm_group_init(gen, cfg: ModelCfg, dev):
     g1, g2 = split_generator(gen, 2)
-    return {"m": _stack_init(lambda r: _mlstm_block_init(r, cfg), g1,
+    return {"m": _stack_init(lambda r: _mlstm_block_init(r, cfg, dev), g1,
                              cfg.slstm_every - 1),
-            "s": _slstm_block_init(g2, cfg)}
+            "s": _slstm_block_init(g2, cfg, dev)}
 
 
 _BLOCK_INIT = {"dense": _dense_block_init, "moe": _moe_block_init,
@@ -180,32 +184,36 @@ def _stack_init(init_fn, gen: torch.Generator, n: int):
     return stacked
 
 
-def init(cfg: ModelCfg, gen: torch.Generator) -> Dict[str, Any]:
-    """Random parameters on ``gen``'s device, with the JAX package's key
-    paths and shapes (the values differ: torch cannot draw ``jax.random``'s
-    numbers; carry JAX's weights with ``from_numpy_tree`` to compare)."""
+def init(cfg: ModelCfg, gen: torch.Generator, *,
+         device=None) -> Dict[str, Any]:
+    """Random parameters on ``gen``'s device (or on ``device``: ``"meta"``
+    with a CPU generator gives the abstract tree), with the JAX package's
+    key paths and shapes (the values differ: torch cannot draw
+    ``jax.random``'s numbers; carry JAX's weights with ``from_numpy_tree``
+    to compare)."""
+    dev = init_device(gen, device)
     ks = split_generator(gen, 8)
     params: Dict[str, Any] = {
         "embed": embed_init(ks[0], cfg.vocab_padded, cfg.d_model,
-                            cfg.param_dtype),
-        "final_norm": _norm(cfg, gen.device),
+                            cfg.param_dtype, device=dev),
+        "final_norm": _norm(cfg, dev),
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(ks[1], cfg.d_model, cfg.vocab_padded,
-                                    cfg.param_dtype, scale=0.02)
+                                    cfg.param_dtype, scale=0.02, device=dev)
     if cfg.rope_fraction == 0.0:
         params["pos_embed"] = embed_init(ks[2], cfg.max_seq, cfg.d_model,
-                                         cfg.param_dtype)
+                                         cfg.param_dtype, device=dev)
     if cfg.n_prefix > 0:
         params["prefix_proj"] = dense_init(ks[3], cfg.d_frontend, cfg.d_model,
-                                           cfg.param_dtype)
+                                           cfg.param_dtype, device=dev)
     segs = segments(cfg)
     for seg, g in zip(segs, split_generator(ks[4], len(segs))):
         params[seg.name] = _stack_init(
-            lambda r: _BLOCK_INIT[seg.kind](r, cfg), g, seg.count)
+            lambda r: _BLOCK_INIT[seg.kind](r, cfg, dev), g, seg.count)
     if cfg.family == "hybrid":
         params["shared_attn"] = _stack_init(
-            lambda r: _shared_attn_init(r, cfg), ks[5],
+            lambda r: _shared_attn_init(r, cfg, dev), ks[5],
             max(cfg.n_shared_attn, 1))
     return params
 

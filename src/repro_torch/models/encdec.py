@@ -32,7 +32,7 @@ from repro_torch.core.opgraph import split_generator
 from . import attention as attn
 from .causal_lm import _checkpointed, _stack, _stack_init
 from .layers import (cross_entropy, dense, dense_init, embed, embed_init,
-                     mlp, mlp_init, norm_apply, norm_init)
+                     init_device, mlp, mlp_init, norm_apply, norm_init)
 from .scan_config import scan
 
 
@@ -40,49 +40,52 @@ def _norm(cfg: ModelCfg, dev):
     return norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, device=dev)
 
 
-def _attn_init(gen, cfg: ModelCfg):
+def _attn_init(gen, cfg: ModelCfg, dev):
     return attn.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                          cfg.head_dim, cfg.param_dtype)
+                          cfg.head_dim, cfg.param_dtype, device=dev)
 
 
-def _enc_block_init(gen, cfg: ModelCfg):
+def _enc_block_init(gen, cfg: ModelCfg, dev):
     g1, g2 = split_generator(gen, 2)
-    return {"ln1": _norm(cfg, gen.device),
-            "attn": _attn_init(g1, cfg),
-            "ln2": _norm(cfg, gen.device),
+    return {"ln1": _norm(cfg, dev),
+            "attn": _attn_init(g1, cfg, dev),
+            "ln2": _norm(cfg, dev),
             "mlp": mlp_init(g2, cfg.d_model, cfg.d_ff, cfg.act,
-                            cfg.param_dtype)}
+                            cfg.param_dtype, device=dev)}
 
 
-def _dec_block_init(gen, cfg: ModelCfg):
+def _dec_block_init(gen, cfg: ModelCfg, dev):
     g1, g2, g3 = split_generator(gen, 3)
-    return {"ln1": _norm(cfg, gen.device),
-            "self_attn": _attn_init(g1, cfg),
-            "ln_x": _norm(cfg, gen.device),
-            "cross_attn": _attn_init(g2, cfg),
-            "ln2": _norm(cfg, gen.device),
+    return {"ln1": _norm(cfg, dev),
+            "self_attn": _attn_init(g1, cfg, dev),
+            "ln_x": _norm(cfg, dev),
+            "cross_attn": _attn_init(g2, cfg, dev),
+            "ln2": _norm(cfg, dev),
             "mlp": mlp_init(g3, cfg.d_model, cfg.d_ff, cfg.act,
-                            cfg.param_dtype)}
+                            cfg.param_dtype, device=dev)}
 
 
-def init(cfg: ModelCfg, gen: torch.Generator) -> Dict[str, Any]:
-    """Random parameters on ``gen``'s device, with the JAX package's key
-    paths and shapes (the values differ: carry JAX's weights with
-    ``from_numpy_tree`` to compare)."""
+def init(cfg: ModelCfg, gen: torch.Generator, *,
+         device=None) -> Dict[str, Any]:
+    """Random parameters on ``gen``'s device (or on ``device``, as
+    ``causal_lm.init``), with the JAX package's key paths and shapes (the
+    values differ: carry JAX's weights with ``from_numpy_tree`` to
+    compare)."""
+    dev = init_device(gen, device)
     ks = split_generator(gen, 6)
     return {
         "src_proj": dense_init(ks[0], cfg.d_frontend, cfg.d_model,
-                               cfg.param_dtype),
+                               cfg.param_dtype, device=dev),
         "embed": embed_init(ks[1], cfg.vocab_padded, cfg.d_model,
-                            cfg.param_dtype),
-        "enc": _stack_init(lambda g: _enc_block_init(g, cfg), ks[2],
+                            cfg.param_dtype, device=dev),
+        "enc": _stack_init(lambda g: _enc_block_init(g, cfg, dev), ks[2],
                            cfg.n_enc_layers),
-        "enc_norm": _norm(cfg, gen.device),
-        "dec": _stack_init(lambda g: _dec_block_init(g, cfg), ks[3],
+        "enc_norm": _norm(cfg, dev),
+        "dec": _stack_init(lambda g: _dec_block_init(g, cfg, dev), ks[3],
                            cfg.n_dec_layers),
-        "final_norm": _norm(cfg, gen.device),
+        "final_norm": _norm(cfg, dev),
         "head": dense_init(ks[4], cfg.d_model, cfg.vocab_padded,
-                           cfg.param_dtype, scale=0.02),
+                           cfg.param_dtype, scale=0.02, device=dev),
     }
 
 

@@ -3,8 +3,10 @@
 Every layer is an (init, apply) pair of plain functions; params are nested
 dicts of tensors with the JAX package's key paths.  An init function draws
 from the ``torch.Generator`` it is given and puts its tensors on that
-generator's device; one that draws nothing (the norms) takes ``device`` as
-a required keyword.
+generator's device, or on the device its ``device`` keyword names; one that
+draws nothing (the norms) takes ``device`` as a required keyword.
+``device="meta"`` with a CPU generator gives abstract parameters (shapes and
+dtypes, no storage): ``torch.Generator(device="meta")`` does not exist.
 """
 from __future__ import annotations
 
@@ -58,15 +60,22 @@ def norm_apply(kind: str, p, x: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------- linears --
-def _normal(gen: torch.Generator, shape) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device,
+def init_device(gen: torch.Generator, device=None) -> torch.device:
+    """Where an init function puts its tensors: ``device`` when given,
+    else ``gen``'s device."""
+    return gen.device if device is None else torch.device(device)
+
+
+def _normal(gen: torch.Generator, shape, device=None) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=init_device(gen, device),
                        dtype=torch.float32)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
-               dtype=torch.float32, scale: Optional[float] = None) -> Params:
+               dtype=torch.float32, scale: Optional[float] = None, *,
+               device=None) -> Params:
     s = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return {"w": (_normal(gen, (d_in, d_out)) * s).to(dtype)}
+    return {"w": (_normal(gen, (d_in, d_out), device) * s).to(dtype)}
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -74,8 +83,8 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
-               dtype=torch.float32) -> Params:
-    return {"table": (_normal(gen, (vocab, d)) * 0.02).to(dtype)}
+               dtype=torch.float32, *, device=None) -> Params:
+    return {"table": (_normal(gen, (vocab, d), device) * 0.02).to(dtype)}
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -113,12 +122,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # --------------------------------------------------------------------- FFN --
 def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str = "silu",
-             dtype=torch.float32) -> Dict[str, Params]:
+             dtype=torch.float32, *, device=None) -> Dict[str, Params]:
     g1, g2, g3 = split_generator(gen, 3)
-    p = {"up": dense_init(g2, d, d_ff, dtype),
-         "down": dense_init(g3, d_ff, d, dtype, scale=1.0 / math.sqrt(d_ff))}
+    p = {"up": dense_init(g2, d, d_ff, dtype, device=device),
+         "down": dense_init(g3, d_ff, d, dtype, scale=1.0 / math.sqrt(d_ff),
+                            device=device)}
     if act in ("silu", "swiglu"):
-        p["gate"] = dense_init(g1, d, d_ff, dtype)
+        p["gate"] = dense_init(g1, d, d_ff, dtype, device=device)
     return p
 
 
@@ -141,12 +151,13 @@ def mlp_flops(tokens: int, d: int, d_ff: int, act: str = "silu") -> float:
 
 # -------------------------------------------------------------- conv (SSM) --
 def causal_conv1d_init(gen: torch.Generator, channels: int, width: int,
-                       dtype=torch.float32) -> Params:
+                       dtype=torch.float32, *, device=None) -> Params:
     s = 1.0 / math.sqrt(width)
-    u = torch.rand((width, channels), generator=gen, device=gen.device,
+    dev = init_device(gen, device)
+    u = torch.rand((width, channels), generator=gen, device=dev,
                    dtype=torch.float32)
     return {"w": (u * (2 * s) - s).to(dtype),
-            "b": torch.zeros(channels, dtype=dtype, device=gen.device)}
+            "b": torch.zeros(channels, dtype=dtype, device=dev)}
 
 
 def causal_conv1d(p: Params, x: torch.Tensor) -> torch.Tensor:

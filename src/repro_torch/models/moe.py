@@ -46,23 +46,24 @@ class MoEOut(NamedTuple):
 
 def moe_init(gen: torch.Generator, d: int, d_ff: int, n_experts: int,
              n_shared: int = 0, shared_d_ff: Optional[int] = None,
-             dtype=torch.float32) -> Dict[str, Any]:
+             dtype=torch.float32, *, device=None) -> Dict[str, Any]:
     ks = split_generator(gen, 5)
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(d_ff)
 
     def ew(g, shape, scale):
-        return (_normal(g, shape) * scale).to(dtype)
+        return (_normal(g, shape, device) * scale).to(dtype)
 
-    p = {"router": dense_init(ks[0], d, n_experts, dtype),
+    p = {"router": dense_init(ks[0], d, n_experts, dtype, device=device),
          "gate": ew(ks[1], (n_experts, d, d_ff), s_in),
          "up": ew(ks[2], (n_experts, d, d_ff), s_in),
          "down": ew(ks[3], (n_experts, d_ff, d), s_out)}
     if n_shared > 0:
         sdf = shared_d_ff if shared_d_ff is not None else n_shared * d_ff
         kg, ku, kd = split_generator(ks[4], 3)
-        p["shared"] = {"gate": dense_init(kg, d, sdf, dtype),
-                       "up": dense_init(ku, d, sdf, dtype),
-                       "down": dense_init(kd, sdf, d, dtype, scale=s_out)}
+        p["shared"] = {"gate": dense_init(kg, d, sdf, dtype, device=device),
+                       "up": dense_init(ku, d, sdf, dtype, device=device),
+                       "down": dense_init(kd, sdf, d, dtype, scale=s_out,
+                                          device=device)}
     return p
 
 

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
 from .layers import (causal_conv1d, causal_conv1d_init, causal_conv1d_step,
-                     dense_init, rmsnorm, rmsnorm_init)
+                     dense_init, init_device, rmsnorm, rmsnorm_init)
 
 
 class MambaCfg(NamedTuple):
@@ -52,10 +52,10 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def mamba_init(gen: torch.Generator, cfg: MambaCfg,
-               dtype=torch.float32) -> Dict[str, Any]:
+               dtype=torch.float32, *, device=None) -> Dict[str, Any]:
     d, di, nh, ds = cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_state
     g1, g2, g3, g4 = split_generator(gen, 4)
-    dev = gen.device
+    dev = init_device(gen, device)
     d_in_proj = 2 * di + 2 * ds + nh          # z, x, B, C, dt
     conv_ch = di + 2 * ds
     # dt bias: softplus^-1 of dt in [1e-3, 1e-1] (mamba default init)
@@ -65,14 +65,16 @@ def mamba_init(gen: torch.Generator, cfg: MambaCfg,
     dt0 = torch.exp(u)
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
     return {
-        "in_proj": dense_init(g1, d, d_in_proj, dtype),
-        "conv": causal_conv1d_init(g2, conv_ch, cfg.conv_width, dtype),
+        "in_proj": dense_init(g1, d, d_in_proj, dtype, device=dev),
+        "conv": causal_conv1d_init(g2, conv_ch, cfg.conv_width, dtype,
+                                   device=dev),
         "A_log": torch.log(torch.linspace(1.0, 16.0, nh, device=dev,
                                           dtype=torch.float32)),
         "D": torch.ones(nh, dtype=torch.float32, device=dev),
         "dt_bias": dt_bias,
         "norm": rmsnorm_init(di, dtype, device=dev),
-        "out_proj": dense_init(g4, di, d, dtype, scale=1.0 / math.sqrt(di)),
+        "out_proj": dense_init(g4, di, d, dtype, scale=1.0 / math.sqrt(di),
+                               device=dev),
     }
 
 

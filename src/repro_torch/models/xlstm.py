@@ -29,8 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
 from .layers import (causal_conv1d, causal_conv1d_init, causal_conv1d_step,
-                     dense_init, layernorm, layernorm_init, rmsnorm,
-                     rmsnorm_init)
+                     dense_init, init_device, layernorm, layernorm_init,
+                     rmsnorm, rmsnorm_init)
 
 
 class XLSTMCfg(NamedTuple):
@@ -62,11 +62,11 @@ class MLSTMState(NamedTuple):
 
 
 def mlstm_init(gen: torch.Generator, cfg: XLSTMCfg,
-               dtype=torch.float32) -> Dict[str, Any]:
+               dtype=torch.float32, *, device=None) -> Dict[str, Any]:
     d, di, nh = cfg.d_model, cfg.d_inner_m, cfg.n_heads
     hd = cfg.head_dim_m
     gs = split_generator(gen, 7)
-    dev = gen.device
+    dev = init_device(gen, device)
 
     def blockdiag(g):
         # per-head (block-diagonal) projection, as in the official mLSTM
@@ -74,14 +74,17 @@ def mlstm_init(gen: torch.Generator, cfg: XLSTMCfg,
                             dtype=torch.float32) / math.sqrt(hd)).to(dtype)
 
     return {
-        "up": dense_init(gs[0], d, 2 * di, dtype),       # (x_m, z)
-        "conv": causal_conv1d_init(gs[1], di, cfg.conv_width, dtype),
+        "up": dense_init(gs[0], d, 2 * di, dtype, device=dev),  # (x_m, z)
+        "conv": causal_conv1d_init(gs[1], di, cfg.conv_width, dtype,
+                                   device=dev),
         "wq": blockdiag(gs[2]),
         "wk": blockdiag(gs[3]),
         "wv": blockdiag(gs[4]),
-        "w_if": dense_init(gs[5], di, 2 * nh, dtype),    # i,f gate pre-acts
+        "w_if": dense_init(gs[5], di, 2 * nh, dtype,     # i,f gate pre-acts
+                           device=dev),
         "norm": rmsnorm_init(di, dtype, device=dev),
-        "down": dense_init(gs[6], di, d, dtype, scale=1.0 / math.sqrt(di)),
+        "down": dense_init(gs[6], di, d, dtype, scale=1.0 / math.sqrt(di),
+                           device=dev),
         # open forget gates; fp32 whatever the parameter dtype
         "f_bias": torch.full((nh,), 3.0, dtype=torch.float32, device=dev),
     }
@@ -226,24 +229,24 @@ def _slstm_ffn_width(cfg: XLSTMCfg) -> int:
 
 
 def slstm_init(gen: torch.Generator, cfg: XLSTMCfg,
-               dtype=torch.float32) -> Dict[str, Any]:
+               dtype=torch.float32, *, device=None) -> Dict[str, Any]:
     d, nh, hd = cfg.d_model, cfg.n_heads, cfg.head_dim_s
     d_ff = _slstm_ffn_width(cfg)
     gs = split_generator(gen, 5)
-    dev = gen.device
+    dev = init_device(gen, device)
     s = 1.0 / math.sqrt(hd)
     return {
         # input projections for gates z,i,f,o : (d, 4*d)
-        "w_in": dense_init(gs[0], d, 4 * d, dtype),
+        "w_in": dense_init(gs[0], d, 4 * d, dtype, device=dev),
         # recurrent per-head block-diagonal: (4, nh, hd, hd)
         "r": (torch.randn((4, nh, hd, hd), generator=gs[1], device=dev,
                           dtype=torch.float32) * s).to(dtype),
         "b": torch.zeros((4, d), dtype=dtype, device=dev),
         "gn": layernorm_init(d, dtype, device=dev),
-        "ffn_gate": dense_init(gs[2], d, d_ff, dtype),
-        "ffn_up": dense_init(gs[3], d, d_ff, dtype),
+        "ffn_gate": dense_init(gs[2], d, d_ff, dtype, device=dev),
+        "ffn_up": dense_init(gs[3], d, d_ff, dtype, device=dev),
         "ffn_down": dense_init(gs[4], d_ff, d, dtype,
-                               scale=1.0 / math.sqrt(d_ff)),
+                               scale=1.0 / math.sqrt(d_ff), device=dev),
         "f_bias": torch.full((nh, hd), 3.0, dtype=torch.float32, device=dev),
     }
 
