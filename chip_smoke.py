@@ -42,7 +42,8 @@
    wire bytes, the checkpoint blob's size and seconds per serialize and
    deserialize, the host's MemTotal, steady step seconds, and the card's
    allocation before and peak within each step, update, serialize, restore
-   and migration;
+   and migration; the obs kit (trace, flight and metrics recorders and a
+   watchdog) rides along, and the recorded trace is what 16 analyses;
 8. drives the serving path — gpt2-xl at full width and depth, random
    weights from seed 0, fp32, served the way ``repro_torch.launch.serve
    --churn`` serves it: 3 stages over ``geo_random(8, seed=0)``, cache_len
@@ -145,7 +146,27 @@
     decode steps, the forward and the loss within rel 1e-5), and the
     pipeline at the JAX reference test's sizes (gpt2-smoke with 8 layers,
     8 × 32, 4 micro-batches) on the card against the CPU (uncompressed
-    loss and gradients, compressed loss, within rel 1e-5).
+    loss and gradients, compressed loss, within rel 1e-5);
+16. analyses the elastic path's trace (7): written as JSONL, it passes
+    ``python -m repro_torch.obs.export --validate --check-order`` and
+    ``python -m repro_torch.obs.critpath --expect-busy`` against the
+    controller's ``sim_*_busy_seconds`` counters; the happens-before check
+    finds no error, every attempt's critical path covers its makespan,
+    which equals its step record's simulated seconds, and the failure
+    epoch re-priced by ``obs.whatif`` equals its recorded step; the same
+    controller run timing-only with and without the kit gives the trained
+    run's step and epoch records (tracing changes no simulated number);
+    it prints the blame table, the what-if ranking over the failure epoch
+    and the length of each section of ``obs.report``;
+17. runs ``python -m repro_torch.check --all-configs --lint --docs`` (every
+    arch's smoke OP-DAG planned and checked, the port's lint, the docs'
+    links): rc 0;
+18. runs the port's dry run (``launch.dryrun.run_one``) for every arch ×
+    shape on the 16×16 and 2×16×16 production meshes in bf16, with
+    nothing allocated on any device: each record ``ok`` (or ``skipped``
+    where the registry skips the shape), its argument bytes equal to the
+    sum this script takes again over the shardings; it prints the
+    argument GiB per device by arch and shape.
 
 Every phase raises on failure (exit code 1).  Without a CUDA device, or
 without ``src/repro_torch`` beside it, it exits with code 2 and prints no
@@ -154,6 +175,8 @@ result.  The last line of standard output is ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import gc
 import json
 import math
@@ -776,6 +799,7 @@ def run_entry_points(dev):
 
 ELASTIC_STEPS = 6           # useful AdamW steps through the failure
 ELASTIC_FAIL_AT = 0.4       # failure time as a fraction of the run (example)
+ELASTIC_RATIO = 100.0       # the joint planner's AdaTopK ratio
 SMOKE_ELASTIC_STEPS = 12    # the smoke-size cross-check's run
 
 
@@ -941,9 +965,14 @@ def run_elastic_path(dev):
     """gpt2-xl full through one CompNode failure: ``ElasticController``
     (joint planner, AdaTopK ratio 100, stop-the-world migration, AdamW,
     checkpoints every 3 steps with 2 kept) for ELASTIC_STEPS useful steps,
-    the kernels' launches counted from just before the run to just after.
-    Returns the path's launch counts and the (shape, k a block) of every
-    compressed boundary it ran."""
+    the kernels' launches counted from just before the run to just after,
+    with the whole obs kit attached (a ``TraceRecorder``, a
+    ``FlightRecorder``, a ``MetricsRegistry`` and a ``Watchdog``).
+    Returns the path's launch counts, the (shape, k a block) of every
+    compressed boundary it ran, and what ``check_analysis`` reads: the
+    recorded events, the flight records, the metrics with the
+    simulator's ``sim_*_busy_seconds`` counters, the step and epoch
+    records, and the run's configuration."""
     import torch
     from repro_torch.configs import resolve
     from repro_torch.core import network
@@ -951,6 +980,8 @@ def run_elastic_path(dev):
     from repro_torch.elastic import ElasticController
     from repro_torch.kernels import topk_compress as tk
     from repro_torch.models.opgraph_models import gpt_opgraph
+    from repro_torch.obs import (FlightRecorder, MetricsRegistry,
+                                 TraceRecorder, Watchdog)
     from repro_torch.optim import adamw
 
     print(f"elastic: host MemTotal {mem_total()}")
@@ -960,7 +991,7 @@ def run_elastic_path(dev):
     prof = graph.annotate(shapes)
     cluster = network.paper_testbed(1, seed=0)
     t1, victim, trace = probe_failure(graph, prof, cluster, dev, "joint",
-                                      100.0, ELASTIC_STEPS)
+                                      ELASTIC_RATIO, ELASTIC_STEPS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     # the list hands the controller the only reference to the initial
@@ -968,11 +999,13 @@ def run_elastic_path(dev):
     params = [graph.init(gen, shapes)]
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0, order=1)
     meter = ElasticMeter(dev)
+    kit = dict(tracer=TraceRecorder(), flight=FlightRecorder(),
+               metrics=MetricsRegistry(), watchdog=Watchdog())
     ctrl = ElasticController(
         graph, prof, cluster, trace, optimizer=meter.optimizer(adamw(3e-4)),
         n_micro=2, lease_s=1.5 * t1, migration_mode="stop",
-        planner="joint", joint_ratio=100.0, use_kernel="auto",
-        checkpoint_interval=3, checkpoint_history=2, device=dev)
+        planner="joint", joint_ratio=ELASTIC_RATIO, use_kernel="auto",
+        checkpoint_interval=3, checkpoint_history=2, device=dev, **kit)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     allocated = torch.cuda.memory_allocated(dev)
@@ -1042,10 +1075,22 @@ def run_elastic_path(dev):
         "peak_mem_gb": meter.peak / 1e9, "wall_s": wall,
         "sim_total_s": res.total_seconds, "launches": got}
     print("elastic path: " + json.dumps(report))
+    traced = {"recorder": kit["tracer"], "events": kit["tracer"].events(),
+              "flight": [r.to_dict() for r in kit["flight"].records()],
+              "metrics": kit["metrics"].snapshot(),
+              "watchdog_trips": len(kit["watchdog"].records),
+              "steps": [dataclasses.asdict(r) for r in res.steps],
+              "epochs": [dataclasses.asdict(e) for e in res.epochs],
+              "total_seconds": res.total_seconds,
+              "graph": graph, "profiles": prof, "cluster": cluster,
+              "churn": trace, "lease_s": 1.5 * t1,
+              "schedule": ctrl.schedule, "plan": ctrl.plan,
+              "true_cluster": ctrl.true_cluster(),
+              "kernel_costs": dict(ctrl.kernel_costs), "wall_s": wall}
     del res, ctrl
     gc.collect()
     torch.cuda.empty_cache()
-    return got, meter.cases
+    return got, meter.cases, traced
 
 
 def check_elastic_smoke(dev):
@@ -1056,8 +1101,6 @@ def check_elastic_smoke(dev):
     identical, the losses within rel 1e-3.  Under the dense planner the
     card's run through the failure must give the losses of a run with no
     failure, step for step, within rel 1e-6."""
-    import dataclasses
-
     import torch
     from repro_torch.configs.base import ModelCfg
     from repro_torch.core import network
@@ -2845,6 +2888,278 @@ def check_pipeline_smoke(dev) -> dict:
     return gaps
 
 
+# =============================================== analysis, checks, dry run ==
+SIM_BUSY = ("sim_device_busy_seconds", "sim_link_busy_seconds",
+            "sim_compress_busy_seconds")
+ANALYSIS_DIR = ROOT / "build" / "analysis"
+
+
+def run_module(args, timeout: float) -> tuple:
+    """``python -m <args>`` from the checkout with the port on the path:
+    (exit code, seconds, standard output, standard error)."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    return (out.returncode, time.perf_counter() - t0, out.stdout.strip(),
+            out.stderr.strip())
+
+
+def check_analysis(traced: dict, card: str) -> dict:
+    """The slice's analyzers over the gpt2-xl elastic trace: the trace as
+    JSONL through ``python -m repro_torch.obs.export --validate
+    --check-order`` and ``python -m repro_torch.obs.critpath
+    --expect-busy`` (rc 0 each), ``traceorder.check_trace_order`` (no
+    error), ``critpath.analyze`` + ``audit`` (every attempt's critical
+    path covers its makespan) and ``check_sim_busy`` against the
+    controller's counters (no problem); each attempt's makespan must equal
+    its step record's simulated seconds, and the failure epoch's window
+    re-priced by ``whatif.Scenario`` must equal its recorded step.  Then
+    tracing must change no simulated number: the same controller,
+    timing-only, with and without the kit, gives the same step and epoch
+    records, and those of the trained run.  Prints the blame table's top
+    rows, the what-if ranking over the failure window and the length of
+    each section of ``report``; raises on any failure."""
+    from repro_torch.check.traceorder import check_trace_order
+    from repro_torch.core.costmodel import EdgeCostModel
+    from repro_torch.elastic import ElasticController
+    from repro_torch.obs import (FlightRecorder, MetricsRegistry,
+                                 TraceRecorder, Watchdog, critpath, report,
+                                 whatif)
+    from repro_torch.obs.export import write_jsonl
+
+    t0 = time.perf_counter()
+    events = traced["events"]
+    ANALYSIS_DIR.mkdir(parents=True, exist_ok=True)
+    trace_path = ANALYSIS_DIR / "TRACE_elastic.jsonl"
+    metrics_path = ANALYSIS_DIR / "METRICS_elastic.json"
+    n_written = write_jsonl(traced["recorder"], str(trace_path))
+    metrics_path.write_text(json.dumps(traced["metrics"]))
+    if traced["recorder"].n_dropped or n_written != len(events):
+        raise AssertionError(f"analysis: the recorder dropped "
+                             f"{traced['recorder'].n_dropped} events")
+    clocks = dict(collections.Counter(e.clock for e in events))
+    cli = {}
+    for name, args in (
+            ("export", ["repro_torch.obs.export", "--validate",
+                        "--check-order", str(trace_path)]),
+            ("critpath", ["repro_torch.obs.critpath", str(trace_path),
+                          "--expect-busy", str(metrics_path), "--top",
+                          "3"])):
+        rc, secs, text, err = run_module(args, timeout=300)
+        if rc != 0:
+            raise AssertionError(f"analysis: {' '.join(args)} gave rc "
+                                 f"{rc}:\n{text}\n{err}")
+        cli[name] = {"rc": rc, "s": secs, "last_line": text.splitlines()[-1]}
+
+    order = [f for f in check_trace_order(events) if f.severity == "error"]
+    if order:
+        raise AssertionError(f"analysis: happens-before errors {order[:5]}")
+    decomps = critpath.analyze(events)
+    audit = critpath.audit(decomps)
+    busy = critpath.busy_accounting(events)
+    totals = {k: traced["metrics"][k] for k in SIM_BUSY
+              if k in traced["metrics"]}
+    gate = critpath.check_sim_busy(busy, totals)
+    if not decomps or audit or gate or "sim_device_busy_seconds" \
+            not in totals:
+        raise AssertionError(f"analysis: {len(decomps)} attempts, audit "
+                             f"{audit}, busy gate {gate}, counters "
+                             f"{totals}")
+    # one attempt (data step, epoch stamp) for each executed step, in
+    # execution order: the trace stamps 0-based data steps, the step
+    # records count from 1
+    executed = traced["steps"]
+    attempts = sorted(decomps, key=lambda d: (d.attempt[1], d.attempt[0]))
+    if len(attempts) != len(executed):
+        raise AssertionError(f"analysis: {len(attempts)} attempts for "
+                             f"{len(executed)} executed steps")
+    for d, r in zip(attempts, executed):
+        if d.attempt[0] != r["step"] - 1 or abs(
+                d.makespan - r["step_seconds"]) > 1e-9 * r["step_seconds"]:
+            raise AssertionError(f"analysis: attempt {d.attempt} makespan "
+                                 f"{d.makespan} vs step record {r}")
+    fail = next(e for e in traced["epochs"] if e["cause"] == "failure")
+    window = [d for d, r in zip(attempts, executed)
+              if r["epoch"] == fail["epoch"]]
+    window_steps = [r for r in executed if r["epoch"] == fail["epoch"]]
+    if not window:
+        raise AssertionError("analysis: no attempt in the failure epoch")
+    rows = critpath.blame(decomps)
+    win_rows = critpath.blame(window)
+    kc = traced["kernel_costs"]
+    sc = whatif.Scenario(
+        graph=traced["graph"], profiles=traced["profiles"],
+        schedule=traced["schedule"], cluster=traced["true_cluster"],
+        plan=traced["plan"], n_micro=2,
+        cost_model=EdgeCostModel(traced["graph"], traced["profiles"],
+                                 traced["true_cluster"], traced["plan"],
+                                 kernel_costs=kc) if kc else None)
+    base = sc.price()
+    if abs(base - window_steps[-1]["step_seconds"]) > 1e-9 * base:
+        raise AssertionError(f"analysis: the failure window re-priced at "
+                             f"{base} s, recorded "
+                             f"{window_steps[-1]['step_seconds']} s")
+    ranked = whatif.rank(sc, whatif.default_interventions(sc, win_rows))
+    text = report.build_report(events, traced["flight"], width=100)
+    sections = {}
+    for block in text.split("\n== "):
+        head, _, body = block.lstrip("= ").partition("\n")
+        sections[head.split(" ==")[0].strip()] = len(body.splitlines())
+    if len(sections) != 7 or any(n == 0 for n in sections.values()):
+        raise AssertionError(f"analysis: report sections {sections}")
+    analysis_s = time.perf_counter() - t0
+
+    # tracing changes no simulated number
+    t1 = time.perf_counter()
+
+    def timing_only(kit):
+        ctrl = ElasticController(
+            traced["graph"], traced["profiles"], traced["cluster"],
+            traced["churn"], n_micro=2, lease_s=traced["lease_s"],
+            migration_mode="stop", planner="joint",
+            joint_ratio=ELASTIC_RATIO,
+            use_kernel="auto", checkpoint_interval=3, checkpoint_history=2,
+            device="cpu", **kit)
+        res = ctrl.run(steps=ELASTIC_STEPS)
+        steps = [dataclasses.asdict(r) for r in res.steps]
+        for r in steps:
+            r.pop("loss")
+        return steps, [dataclasses.asdict(e) for e in res.epochs], \
+            res.total_seconds
+
+    kit = dict(tracer=TraceRecorder(), flight=FlightRecorder(),
+               metrics=MetricsRegistry(), watchdog=Watchdog())
+    plain, with_kit = timing_only({}), timing_only(kit)
+    trained = ([{k: v for k, v in r.items() if k != "loss"}
+                for r in traced["steps"]], traced["epochs"],
+               traced["total_seconds"])
+    if not plain == with_kit == trained:
+        raise AssertionError("analysis: tracing changed the simulated "
+                             "records (timing-only with / without the kit, "
+                             "and the trained run)")
+    sim_events = [e for e in kit["tracer"].events() if e.clock == "sim"]
+    if critpath.busy_accounting(sim_events) != busy:
+        raise AssertionError("analysis: the timing-only run's trace differs "
+                             "from the trained run's on the sim clock")
+    sim_check_s = time.perf_counter() - t1
+
+    print("analysis blame (all attempts):\n"
+          + critpath.render_blame(rows, top=5))
+    print("analysis blame (failure window):\n"
+          + critpath.render_blame(win_rows, top=5))
+    out = {
+        "card": card, "events": len(events), "by_clock": clocks,
+        "attempts": len(decomps), "failure_window_attempts": len(window),
+        "critical_share_by_kind": {
+            kind: sum(r.share for r in rows if r.kind == kind)
+            for kind in ("compute", "wire", "codec", "stall")},
+        "mean_makespan_s": sum(d.makespan for d in decomps) / len(decomps),
+        "busy_s": busy, "sim_busy_s": totals,
+        "watchdog_trips": traced["watchdog_trips"],
+        "flight_records": len(traced["flight"]),
+        "whatif_baseline_s": base,
+        "whatif": [{"name": r.name, "predicted_s": r.predicted_seconds,
+                    "speedup": r.speedup} for r in ranked],
+        "report_lines": sections, "cli": cli, "analysis_s": analysis_s,
+        "timing_only_check_s": sim_check_s,
+        "elastic_wall_s": traced["wall_s"]}
+    print("analysis: " + json.dumps(out))
+    return out
+
+
+def run_check_package(card: str) -> dict:
+    """``python -m repro_torch.check --all-configs --lint --docs`` in a
+    subprocess: every arch's smoke OP-DAG planned and checked, the port's
+    lint and the docs' links; rc 0."""
+    args = ["repro_torch.check", "--all-configs", "--lint", "--docs"]
+    rc, secs, text, err = run_module(args, timeout=600)
+    lines = text.splitlines()
+    if rc != 0 or not all(ln.endswith(": OK") for ln in lines):
+        raise AssertionError(f"check: python -m {' '.join(args)} gave rc "
+                             f"{rc}:\n{text}\n{err}")
+    out = {"card": card, "rc": rc, "s": secs, "lines": len(lines)}
+    print("check package: " + json.dumps(out))
+    return out
+
+
+def argument_bytes_by_leaves(args, in_shardings) -> int:
+    """Per-device argument bytes, leaf by leaf in tree order (the dry
+    run's own sum pairs leaves by path)."""
+    from repro_torch.core.opgraph import tree_leaves
+    leaves, shardings = tree_leaves(args), tree_leaves(in_shardings)
+    if len(leaves) != len(shardings):
+        raise AssertionError(f"dryrun: {len(leaves)} arguments for "
+                             f"{len(shardings)} shardings")
+    return sum(math.prod(sh.shard_shape(tuple(t.shape))) * t.element_size()
+               for t, sh in zip(leaves, shardings))
+
+
+def run_dryrun_path(card: str) -> dict:
+    """``dryrun.run_one`` for every arch × shape of the registry on both
+    production meshes, in bf16: each record ``ok`` (``skipped`` where the
+    registry skips the shape), its compiler-only fields ``None``, and its
+    ``argument_bytes`` equal to the sum this phase takes again over the
+    shardings ``build_jitted`` gives.  Nothing is allocated on any
+    device.  Prints the argument GiB per device, by arch and shape, on
+    16×16 and 2×16×16."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, resolve
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.distributed.steps import build_jitted
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    t0 = time.perf_counter()
+    allocated = torch.cuda.memory_allocated()
+    gib, counts = {}, {"ok": 0, "skipped": 0}
+    for arch in ARCH_IDS:
+        entry = resolve(arch)
+        for shape_name, shape in INPUT_SHAPES.items():
+            for multi_pod in (False, True):
+                rec = dryrun.run_one(arch, shape_name, multi_pod)
+                want = "ok" if shape_name in entry.shapes else "skipped"
+                if rec["status"] != want:
+                    raise AssertionError(f"dryrun {arch} {shape_name} "
+                                         f"multi_pod={multi_pod}: {rec}")
+                counts[want] += 1
+                if want == "skipped":
+                    continue
+                set_fields = [f for f in dryrun.NOT_MEASURED if (
+                    rec["mem"] if f.startswith("mem.") else rec)[
+                        f.split(".")[-1]] is not None]
+                if set_fields:
+                    raise AssertionError(f"dryrun {arch} {shape_name}: "
+                                         f"compiler-only {set_fields} set")
+                cfg = entry.full.replace(dtype=torch.bfloat16,
+                                         param_dtype=torch.bfloat16,
+                                         remat=shape.kind == "train")
+                mesh = make_production_mesh(multi_pod=multi_pod)
+                rules = {"batch": None} \
+                    if shape.global_batch < mesh.shape["data"] else {}
+                with use_mesh(mesh, rules):
+                    _, args, meta = build_jitted(cfg, mesh, shape)
+                want_bytes = argument_bytes_by_leaves(args,
+                                                      meta["in_shardings"])
+                if rec["mem"]["argument_bytes"] != want_bytes:
+                    raise AssertionError(
+                        f"dryrun {arch} {shape_name} {rec['mesh']}: "
+                        f"argument_bytes {rec['mem']['argument_bytes']} vs "
+                        f"{want_bytes} over the shardings")
+                gib.setdefault(arch, {}).setdefault(shape_name, {})[
+                    rec["mesh"]] = want_bytes / 2**30
+    if torch.cuda.memory_allocated() != allocated:
+        raise AssertionError("dryrun: the sweep allocated on the card")
+    secs = time.perf_counter() - t0
+    for arch, by_shape in gib.items():
+        print(f"dryrun {arch}: argument GiB per device "
+              + json.dumps(by_shape))
+    out = {"card": card, "records": counts, "s": secs}
+    print("dryrun path: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
@@ -2878,7 +3193,8 @@ def main() -> int:
     cases = {(tuple(shape), k) for r in training.values()
              for shape, k in r["codec_cases"]}
     paths["train gspmd"] = run_gspmd_path(dev)
-    paths["train elastic"], elastic_cases = run_elastic_path(dev)
+    paths["train elastic"], elastic_cases, elastic_trace = \
+        run_elastic_path(dev)
     paths["serve"] = run_serve_path(dev)
     paths["serve hybrid"] = run_hybrid_serve_path(dev)
     paths["xlstm"] = run_xlstm_path(dev)
@@ -2900,6 +3216,10 @@ def main() -> int:
     check_serve_smoke(dev)
     check_hybrid_smoke(dev)
     check_pipeline_smoke(dev)
+    check_analysis(elastic_trace, card)
+    del elastic_trace
+    run_check_package(card)
+    run_dryrun_path(card)
 
     main_shape = timing[(BATCH, SEQ, 1600)]
     kernels = []

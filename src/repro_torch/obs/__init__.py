@@ -1,7 +1,20 @@
 """Observability for the port: span tracing, metrics, structured logging,
 the elastic controller's flight recorder, the telemetry bus, the watchdog
 and the trace export (Chrome/Perfetto JSON, JSONL) — stdlib only, no-ops
-when disabled."""
+when disabled.
+
+Three analysis modules read what these record, and are imported
+explicitly, not re-exported (they pull in :mod:`repro_torch.check` and
+:mod:`repro_torch.core` lazily):
+
+* :mod:`repro_torch.obs.critpath` — critical-path bottleneck attribution
+  over span logs (the blame table, the busy accounting and its gate);
+* :mod:`repro_torch.obs.whatif` — counterfactual re-pricing of a recorded
+  step through the simulator;
+* :mod:`repro_torch.obs.report` — the run-report CLI rendering timeline,
+  overlap, straggler heatmap, critical path and decision log from the
+  artifacts.
+"""
 from .bus import MetricsTelemetrySink, TelemetryBus
 from .export import (events_from_dicts, read_header, read_jsonl,
                      surface_drops, to_trace_events, validate_trace_events,

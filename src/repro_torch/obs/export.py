@@ -21,9 +21,7 @@ events carry their ``args.name``.  Returns a list of violation strings
 CLI::
 
     python -m repro_torch.obs.export --validate TRACE.json      # or .jsonl
-
-(The JAX package's ``--check-order`` pass needs its ``check.traceorder``,
-which comes to the port with ROADMAP Q1.5.)
+    python -m repro_torch.obs.export --check-order TRACE.jsonl  # + ordering
 """
 from __future__ import annotations
 
@@ -117,8 +115,8 @@ def write_jsonl(recorder_or_events, path: str, metrics=None) -> int:
         {"header": "repro.obs/trace.v1", "n_events": ..., "n_dropped": ...,
          "capacity": ...}
 
-    so downstream consumers (the critical-path analyzer, the report CLI)
-    can refuse silently-truncated inputs.  Returns the *event* count (the
+    so downstream consumers (:mod:`repro_torch.obs.critpath`, the report
+    CLI) can refuse silently-truncated inputs.  Returns the *event* count (the
     header line is metadata, not an event)."""
     is_rec = isinstance(recorder_or_events, TraceRecorder)
     events = recorder_or_events.events() if is_rec \
@@ -227,17 +225,34 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--validate", action="store_true",
                     help="schema-check the artifact; non-zero exit on "
                          "violations")
+    ap.add_argument("--check-order", action="store_true",
+                    help="additionally run the repro_torch.check "
+                         "happens-before checker (overlapping sends, "
+                         "compute before inbound transfer)")
     args = ap.parse_args(argv)
     events = load_trace_file(args.path)
     errors = validate_trace_events(events)
-    if args.validate:
-        if errors:
-            print(f"{args.path}: INVALID ({len(errors)} violations)",
+    order_errors: List[str] = []
+    if args.check_order:
+        # function-local import: repro_torch.obs stays stdlib-only
+        # importable; the happens-before pass is the check layer's
+        from repro_torch.check.traceorder import (check_trace_order,
+                                                  load_trace_events)
+        order_errors = [str(f)
+                        for f in check_trace_order(load_trace_events(
+                            args.path))
+                        if f.severity == "error"]
+    if args.validate or args.check_order:
+        bad = errors + order_errors
+        if bad:
+            print(f"{args.path}: INVALID ({len(bad)} violations)",
                   file=sys.stderr)
-            for e in errors[:20]:
+            for e in bad[:20]:
                 print(f"  - {e}", file=sys.stderr)
             return 1
-        print(f"{args.path}: OK ({len(events)} trace events, schema valid)")
+        ordered = ", happens-before ok" if args.check_order else ""
+        print(f"{args.path}: OK ({len(events)} trace events, schema valid"
+              f"{ordered})")
         return 0
     print(f"{len(events)} trace events, {len(errors)} violations")
     return 0
