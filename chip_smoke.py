@@ -126,10 +126,20 @@
    from the same weights and AdamW state; it prints the steady step
    seconds, tokens/s, peak memory, the FLOP bound (``analysis.roofline``
    at the fp32 peak) and the gspmd step beside it;
-14. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
+14. trains gpt2-xl at full width and depth (seed 0, fp32) with the gspmd
+   step of ``build_jitted`` sharded over a ``(2, 2)`` ``("data",
+   "model")`` mesh of 4 ranks (``launch.spmd``), each on this card, joined
+   by the host-staged gloo group: 3 Adafactor steps on batches 8 × 128;
+   each rank's argument bytes equal the shardings' sum (1,639,513,860),
+   step 1's loss, ``grad_norm`` and updated parameters (one vector) are
+   within rel 1e-5 of the unsharded step on the card, and every loss is
+   finite; it prints each rank's peak memory, the median step seconds and
+   tokens/s, and a steady step's collectives by kind (CommDebugMode's
+   count, the staged group's calls and bytes); no codec runs;
+15. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
    versions at every (boundary shape, k a block) that the training,
    elastic and pipeline paths gave them, derived from each step's plan;
-15. checks the output the repository's way: finite losses, RAD equal to
+16. checks the output the repository's way: finite losses, RAD equal to
     single-device autograd on the card at smoke size, the card's loss
     curves (plain and error-feedback) against the CPU's on the same
     weights, gpt2-smoke through ``train_gspmd`` on the card against the
@@ -147,7 +157,7 @@
     pipeline at the JAX reference test's sizes (gpt2-smoke with 8 layers,
     8 × 32, 4 micro-batches) on the card against the CPU (uncompressed
     loss and gradients, compressed loss, within rel 1e-5);
-16. analyses the elastic path's trace (7): written as JSONL, it passes
+17. analyses the elastic path's trace (7): written as JSONL, it passes
     ``python -m repro_torch.obs.export --validate --check-order`` and
     ``python -m repro_torch.obs.critpath --expect-busy`` against the
     controller's ``sim_*_busy_seconds`` counters; the happens-before check
@@ -158,10 +168,10 @@
     run's step and epoch records (tracing changes no simulated number);
     it prints the blame table, the what-if ranking over the failure epoch
     and the length of each section of ``obs.report``;
-17. runs ``python -m repro_torch.check --all-configs --lint --docs`` (every
+18. runs ``python -m repro_torch.check --all-configs --lint --docs`` (every
     arch's smoke OP-DAG planned and checked, the port's lint, the docs'
     links): rc 0;
-18. runs the port's dry run (``launch.dryrun.run_one``) for every arch ×
+19. runs the port's dry run (``launch.dryrun.run_one``) for every arch ×
     shape on the 16×16 and 2×16×16 production meshes in bf16, with
     nothing allocated on any device: each record ``ok`` (or ``skipped``
     where the registry skips the shape), its argument bytes equal to the
@@ -2888,6 +2898,198 @@ def check_pipeline_smoke(dev) -> dict:
     return gaps
 
 
+# ============================================= sharded over processes ==
+SPMD_MESH = ((2, 2), ("data", "model"))
+SPMD_STEPS = 3              # Adafactor steps (build_jitted's default)
+SPMD_GAP = 1e-5             # step 1 against the unsharded step, rel
+SPMD_TIMEOUT = 900.0        # every wait of the ranks
+
+
+def local_bytes(tree) -> int:
+    from repro_torch.core.opgraph import tree_leaves
+    return sum(t.to_local().numel() * t.element_size()
+               for t in tree_leaves(tree))
+
+
+def spmd_rank(rank, dev):
+    """One rank of the spmd phase (see :func:`run_spmd_path`)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs import InputShape, resolve
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.params import shard_tree
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.distributed.steps import build_jitted, make_train_step
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import causal_lm
+    from repro_torch.optim import adafactor
+
+    tk.reset_launch_counts()
+    cfg = resolve("gpt2-xl").full
+    mesh = make_process_mesh(*SPMD_MESH, dev)
+    shape = InputShape("spmd", SEQ, BATCH, "train")
+    fn, args, meta = build_jitted(cfg, mesh, shape)
+    p_sh, o_sh, b_sh = meta["in_shardings"]
+
+    def whole_params():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)              # every rank draws the same tree
+        return causal_lm.init(cfg, gen)
+
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0, order=1)
+    batches = [{k: torch.as_tensor(v, dtype=torch.int32, device=dev)
+                for k, v in ds.batch(BATCH, i).items()}
+               for i in range(SPMD_STEPS)]
+    params = shard_tree(whole_params(), p_sh)
+    torch.cuda.empty_cache()
+    opt = adafactor(1e-3)
+    state = opt.init(params)
+    sharded = [shard_tree(b, b_sh) for b in batches]
+    arg_bytes = {"params": local_bytes(params), "opt_state":
+                 local_bytes(state), "batch": local_bytes(sharded[0])}
+    want = argument_bytes_by_leaves(args, meta["in_shardings"])
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, norms, step_s, comm = [], [], [], {}
+    after_first = None
+    for i, b in enumerate(sharded):
+        spmd.reset_staged_counts()
+        mode = CommDebugMode()
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with use_mesh(mesh), mode:
+            params, state, m = fn(params, state, b)
+        torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        staged = spmd.staged_counts()
+        losses.append(float(m["loss"].full_tensor()))
+        norms.append(float(m["grad_norm"].full_tensor()))
+        if i == 0:
+            after_first = params
+        if i == 1:                      # a steady step's collectives
+            comm = {str(k).rsplit(".", 1)[-1]: v
+                    for k, v in mode.get_comm_counts().items()}
+            comm = {k: {"count": v, "staged_as": STAGED_KIND.get(k, k)}
+                    for k, v in comm.items()}
+            comm["staged"] = staged
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = launch_counts()
+    del params, state
+
+    # step 1 on one device, on rank 0, from the same weights and batch;
+    # its updated parameters reach every rank by DTensor's own scatter
+    ref = {}
+    if rank == 0:
+        whole = whole_params()
+        new, _, m = make_train_step(cfg, opt)(whole, opt.init(whole),
+                                              {k: v.long() for k, v in
+                                               batches[0].items()})
+        del whole
+        ref = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    ref_leaves = tree_leaves(new) if rank == 0 else None
+    num = den = torch.zeros((), dtype=torch.float64, device=dev)
+    for j, (mine, sh) in enumerate(zip(tree_leaves(after_first),
+                                       tree_leaves(p_sh))):
+        src = ref_leaves[j] if rank == 0 else torch.empty(
+            mine.shape, dtype=mine.dtype, device=dev)
+        theirs = distribute_tensor(src, mesh.device_mesh, sh.placements,
+                                   src_data_rank=0).to_local().double()
+        d = mine.to_local().double() - theirs
+        num = num + (d * d).sum()
+        den = den + (theirs * theirs).sum()
+    sums = torch.stack([num, den])
+    dist.all_reduce(sums)
+    ref["params_rel_gap"] = math.sqrt(float(sums[0]) / float(sums[1]))
+    return {"rank": rank, "coordinate": mesh.coordinate(),
+            "argument_bytes": arg_bytes,
+            "argument_bytes_total": sum(arg_bytes.values()),
+            "argument_bytes_want": want, "losses": losses,
+            "grad_norms": norms, "step_s": step_s,
+            "peak_mem_gb": peak / 1e9, "collectives_step_2": comm,
+            "launches": launches, "reference": ref}
+
+
+# the host-staged group's name for each collective CommDebugMode counts
+STAGED_KIND = {"all_gather_into_tensor": "all_gather",
+               "reduce_scatter_tensor": "reduce_scatter",
+               "all_reduce": "all_reduce", "all_to_all_single": "all_to_all",
+               "shard_dim_alltoall": "all_to_all"}
+
+
+def run_spmd_path(dev):
+    """gpt2-xl full (48 layers, d_model 1600; seed 0, fp32) trained by the
+    gspmd step of ``build_jitted`` sharded over a ``(2, 2)`` ``("data",
+    "model")`` process mesh: 4 ranks, each on this card, joined by the
+    host-staged gloo group (``launch.spmd.STAGED``), SPMD_STEPS Adafactor
+    steps on batches BATCH × SEQ of ``SyntheticLM``.  Checks that each
+    rank holds exactly the argument bytes the shardings give it, that step
+    1's loss, ``grad_norm`` and updated parameters (one vector) are within
+    SPMD_GAP of the unsharded ``make_train_step`` on this card (rank 0),
+    and that every loss is finite; prints each rank's peak memory, the
+    median step seconds and tokens/s, and a steady step's collectives by
+    kind (CommDebugMode's counts, the staged group's calls and bytes).
+    Four ranks sharing one card through host memory is a check, not a
+    speed any user would see.  Returns the ranks' summed launch counts
+    (the step has no codec: all 0)."""
+    import torch
+    from repro_torch.launch import spmd
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"spmd: card free {free / 1e9:.2f} GB of {total / 1e9:.2f} GB "
+          f"before the ranks start")
+    t0 = time.perf_counter()
+    ranks = spmd.run(spmd_rank, math.prod(SPMD_MESH[0]),
+                     rdv_dir=str(ROOT / "build" / "spmd"), device=dev,
+                     backend=spmd.STAGED, timeout=SPMD_TIMEOUT)
+    wall = time.perf_counter() - t0
+    ref = ranks[0]["reference"]
+    for r in ranks:
+        if r["argument_bytes_total"] != r["argument_bytes_want"]:
+            raise AssertionError(f"spmd rank {r['rank']}: argument bytes "
+                                 f"{r['argument_bytes']} vs "
+                                 f"{r['argument_bytes_want']}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"spmd rank {r['rank']}: non-finite loss "
+                                 f"{r['losses']}")
+    gaps = {"loss": abs(ranks[0]["losses"][0] - ref["loss"]) / ref["loss"],
+            "grad_norm": abs(ranks[0]["grad_norms"][0] - ref["grad_norm"])
+            / ref["grad_norm"], "params": ref["params_rel_gap"]}
+    if max(gaps.values()) > SPMD_GAP:
+        raise AssertionError(f"spmd: step 1 against the unsharded step: "
+                             f"{gaps} (limit {SPMD_GAP}); {ref}")
+    step_s = sorted(ranks[0]["step_s"])
+    median = step_s[len(step_s) // 2]
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in
+                ranks[0]["launches"]}
+    card = card_line()
+    report = {
+        "card": card, "mesh": "(2, 2) data x model, 4 ranks on one card",
+        "backend": spmd.STAGED, "batch": BATCH, "seq": SEQ,
+        "argument_bytes_per_rank": ranks[0]["argument_bytes_want"],
+        "losses": ranks[0]["losses"], "grad_norms": ranks[0]["grad_norms"],
+        "reference": {k: v for k, v in ref.items()}, "rel_gaps": gaps,
+        "limit": SPMD_GAP, "step_s": ranks[0]["step_s"],
+        "median_step_s": median, "tokens_per_s": BATCH * SEQ / median,
+        "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in ranks],
+        "collectives_step_2_rank_0": ranks[0]["collectives_step_2"],
+        "wall_s": wall, "launches": launches}
+    print("spmd path: " + json.dumps(report))
+    for r in ranks:
+        print(f"spmd rank {r['rank']} {r['coordinate']}: " + json.dumps(
+            {k: r[k] for k in ("argument_bytes", "peak_mem_gb", "step_s",
+                               "collectives_step_2")}))
+    return launches
+
+
 # =============================================== analysis, checks, dry run ==
 SIM_BUSY = ("sim_device_busy_seconds", "sim_link_busy_seconds",
             "sim_compress_busy_seconds")
@@ -3201,6 +3403,7 @@ def main() -> int:
     paths["encdec"] = run_encdec_path(dev)
     paths["entry points"] = run_entry_points(dev)
     paths["train pipeline"], pipeline_cases = run_pipeline_path(dev)
+    paths["train spmd"] = run_spmd_path(dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on its path: "

@@ -18,7 +18,8 @@ from __future__ import annotations
 import re
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
-from .sharding import Mesh, NamedSharding, PartitionSpec as P
+from .sharding import (Mesh, NamedSharding, PartitionSpec as P,
+                       distribute, is_dtensor, place)
 
 
 def _axis_size(mesh: Mesh, name: str) -> int:
@@ -56,6 +57,41 @@ def tree_map_with_path(fn: Callable[[Tuple, Any], Any], tree: Any,
         return type(tree)(tree_map_with_path(fn, v, path + (i,))
                           for i, v in enumerate(tree))
     return fn(path, tree)
+
+
+def tree_zip_map(fn: Callable[[Any, Any], Any], tree: Any,
+                 other: Any) -> Any:
+    """``fn(leaf, other_leaf)`` over two trees of the same structure (the
+    first one's); ``None`` in ``tree`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {k: tree_zip_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[tree_zip_map(fn, a, b)
+                            for a, b in zip(tree, other)])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_zip_map(fn, a, b) for a, b in zip(tree, other))
+    return fn(tree, other)
+
+
+def shard_tree(tree: Any, shardings: Any) -> Any:
+    """Whole tensors, alike on every rank, -> this rank's shards as
+    DTensors placed by ``shardings`` (a local slice each, no
+    communication)."""
+    return tree_zip_map(distribute, tree, shardings)
+
+
+def place_tree(tree: Any, shardings: Any) -> Any:
+    """Every DTensor leaf redistributed to its sharding, as ``jax.jit``'s
+    in/out shardings place a step's arguments and results; a plain tensor
+    raises (it is not on the mesh)."""
+    def one(x, sh):
+        if not is_dtensor(x):
+            raise TypeError(f"a plain tensor of shape {tuple(x.shape)} "
+                            f"where a DTensor placed by {sh.spec} belongs")
+        return place(x, sh)
+    return tree_zip_map(one, tree, shardings)
 
 
 def tree_path_str(path) -> str:

@@ -5,23 +5,29 @@ The JAX package takes ``Mesh``, ``NamedSharding`` and ``PartitionSpec`` from
 
 * :class:`Mesh` — a grid of devices with named axes (``shape`` an ordered
   mapping, ``axis_names``, ``size``, ``devices`` an array of
-  ``torch.device`` or ``None`` for a mesh that only describes a layout);
+  ``torch.device`` or ``None`` for a mesh that only describes a layout),
+  and on a *process mesh* the ``torch.distributed`` ``DeviceMesh`` whose
+  positions are the ranks of a process group (``device_mesh``);
 * :class:`PartitionSpec` (``P``) — a tuple with JAX's equality: an entry
   that is a one-axis tuple equals its scalar form, and an empty tuple
   equals ``None``;
-* :class:`NamedSharding` — a mesh and a spec, and the shape of one shard.
+* :class:`NamedSharding` — a mesh and a spec, the shape of one shard, and
+  on a process mesh its DTensor ``placements``.
 
 Model code annotates activations with *logical* axes (``"batch"``,
 ``"model"``, ``"seq"``); :func:`use_mesh` binds them to physical mesh axes.
 Off-mesh, on one device, or when every axis resolves to ``None``,
-:func:`constrain` is the identity, as in JAX.  Anything else would need a
-partitioner to hand the constraint to, and the port has none: it raises.
+:func:`constrain` is the identity, as in JAX.  On a process mesh it
+redistributes a DTensor to the spec's placements (JAX's
+``with_sharding_constraint``); on a mesh of devices in one process there is
+no partitioner to hand the constraint to, and it raises.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import math
+import sys
 import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -34,10 +40,16 @@ Rules = Dict[str, Union[str, Tuple[str, ...], None]]
 # =================================================================== mesh ==
 class Mesh:
     """Devices on a grid with named axes.  ``devices`` holds one
-    ``torch.device`` per position (a device may repeat) or is ``None``."""
+    ``torch.device`` per position (a device may repeat) or is ``None``.
+
+    With ``device_mesh`` (a ``torch.distributed`` ``DeviceMesh`` of the same
+    shape and axis names) it is a process mesh: position r is rank r,
+    row-major, as JAX's ``mesh.devices.flat``, and ``devices`` holds each
+    rank's device."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 devices: Optional[Sequence[torch.device]] = None):
+                 devices: Optional[Sequence[torch.device]] = None,
+                 device_mesh=None):
         shape = tuple(int(s) for s in shape)
         axis_names = tuple(axis_names)
         if len(shape) != len(axis_names):
@@ -56,6 +68,20 @@ class Mesh:
             arr = np.empty(self.size, dtype=object)
             arr[:] = flat
             self.devices = arr.reshape(shape)
+        self.device_mesh = device_mesh
+        if device_mesh is not None and (
+                tuple(device_mesh.shape) != shape
+                or tuple(device_mesh.mesh_dim_names or ()) != axis_names):
+            raise ValueError(f"device mesh {device_mesh} is not {shape} "
+                             f"over {axis_names}")
+
+    @property
+    def is_process_mesh(self) -> bool:
+        return self.device_mesh is not None
+
+    def coordinate(self) -> Dict[str, int]:
+        """This rank's position on a process mesh, by axis."""
+        return dict(zip(self.axis_names, self.device_mesh.get_coordinate()))
 
     def distinct_devices(self) -> Tuple[torch.device, ...]:
         """The mesh's devices, each once, in the order of first position."""
@@ -67,6 +93,8 @@ class Mesh:
         axes = ", ".join(f"{a!r}: {n}" for a, n in self.shape.items())
         where = "no devices" if self.devices is None else \
             f"on {', '.join(map(str, self.distinct_devices()))}"
+        if self.is_process_mesh:
+            where += f", {self.size} ranks"
         return f"Mesh({axes}; {where})"
 
 
@@ -130,6 +158,42 @@ class NamedSharding:
                 raise ValueError(f"{self} splits axis {i} of {shape} "
                                  f"{n} ways")
             out[i] = shape[i] // n
+        return tuple(out)
+
+    @property
+    def placements(self) -> tuple:
+        """DTensor placements, one per mesh axis: ``Shard(d)`` on each axis
+        that spec entry ``d`` names (a tuple entry shards its dimension on
+        each of its axes, major first, as in JAX), ``Replicate()`` on an
+        axis no entry names.  A tuple whose axes run against the mesh's
+        order would need another shard order than DTensor's default; it
+        raises."""
+        from torch.distributed.tensor import Replicate, Shard
+        out = [Replicate()] * len(self.mesh.axis_names)
+        order = {a: i for i, a in enumerate(self.mesh.axis_names)}
+        for d, part in enumerate(self.spec):
+            idx = [order[a] for a in _axes(part)]
+            if idx != sorted(idx):
+                raise NotImplementedError(
+                    f"{self.spec} shards dim {d} over {part} against the "
+                    f"mesh's axis order {self.mesh.axis_names}")
+            for i in idx:
+                out[i] = Shard(d)
+        return tuple(out)
+
+    def local_slices(self, global_shape: Sequence[int],
+                     coordinate: Dict[str, int]) -> Tuple[slice, ...]:
+        """The index of the shard at mesh ``coordinate`` (axis -> position)
+        into an array of ``global_shape``: JAX's
+        ``devices_indices_map`` entry for that position."""
+        local = self.shard_shape(global_shape)
+        out = [slice(None)] * len(local)
+        for d, part in enumerate(self.spec):
+            idx = 0
+            for a in _axes(part):
+                idx = idx * self.mesh.shape[a] + coordinate[a]
+            if _axes(part):
+                out[d] = slice(idx * local[d], (idx + 1) * local[d])
         return tuple(out)
 
     def __repr__(self) -> str:
@@ -198,20 +262,106 @@ def logical_to_spec(axes: Sequence[Optional[str]]) -> PartitionSpec:
 def constrain(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
     """JAX's ``with_sharding_constraint`` by logical axes.  The identity
     off-mesh, on a mesh of one device, or when every logical axis resolves
-    to ``None`` (as in JAX, where an all-None spec would pin replication);
-    otherwise ``NotImplementedError``: the port has no partitioner to hand
-    the constraint to."""
+    to ``None`` (as in JAX, where an all-None spec would pin replication).
+    On a process mesh a DTensor is redistributed to the spec's placements
+    and a plain tensor raises ``TypeError`` (it would be computed whole on
+    every rank); on a mesh of devices in one process it raises
+    ``NotImplementedError``: there is no partitioner to hand the
+    constraint to."""
     mesh, _ = _current()
     if mesh is None or mesh.size == 1:
         return x
     if x.dim() != len(axes):
         raise ValueError(f"rank {x.dim()} vs axes {axes}")
+    if mesh.is_process_mesh and not is_dtensor(x):
+        raise TypeError(f"constrain on {mesh!r}: a plain tensor of shape "
+                        f"{tuple(x.shape)}, not a DTensor")
     spec = logical_to_spec(axes)
     if all(s is None for s in spec):
         return x
+    if mesh.is_process_mesh:
+        return place(x, NamedSharding(mesh, spec))
     raise NotImplementedError(
-        f"constrain to {spec} on {mesh!r}: the port places no shards and "
-        f"has no partitioner to hand a sharding constraint to")
+        f"constrain to {spec} on {mesh!r}: the port places no shards on a "
+        f"mesh of devices in one process")
+
+
+# ============================================================== DTensors ==
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (without importing DTensor, ~1 s, where
+    nothing has: then no tensor can be one)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def mesh_of(x) -> Optional[Mesh]:
+    """The process mesh a DTensor lives on (``None`` for a plain tensor)."""
+    if not is_dtensor(x):
+        return None
+    dm = x.device_mesh
+    return Mesh(dm.shape, dm.mesh_dim_names, [x.device] * dm.size(),
+                device_mesh=dm)
+
+
+def place(x, sharding: NamedSharding):
+    """A DTensor redistributed to ``sharding``'s placements (unchanged when
+    it is there already)."""
+    placements = sharding.placements
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(sharding.mesh.device_mesh, placements)
+
+
+def from_local(local: torch.Tensor, sharding: NamedSharding,
+               global_shape: Sequence[int]):
+    """This rank's shard ``local`` of a tensor of ``global_shape``, as a
+    DTensor placed by ``sharding`` on its process mesh."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(int(d) for d in global_shape)
+    if tuple(local.shape) != sharding.shard_shape(shape):
+        raise ValueError(f"a shard of {tuple(local.shape)} for {shape} "
+                         f"placed by {sharding.spec}")
+    return DTensor.from_local(local.contiguous(),
+                              sharding.mesh.device_mesh, sharding.placements,
+                              run_check=False, shape=shape,
+                              stride=_contiguous(shape))
+
+
+def distribute(t: torch.Tensor, sharding: NamedSharding):
+    """This rank's shard of the whole tensor ``t``, which every rank holds
+    alike, as a DTensor placed by ``sharding`` on its process mesh: a local
+    slice, no communication."""
+    local = t[sharding.local_slices(t.shape, sharding.mesh.coordinate())]
+    return from_local(local, sharding, t.shape)
+
+
+def zeros(shape: Sequence[int], dtype: torch.dtype,
+          sharding: NamedSharding):
+    """Zeros of ``shape`` placed by ``sharding`` on its process mesh: each
+    rank allocates its shard only."""
+    local = torch.zeros(sharding.shard_shape(shape), dtype=dtype,
+                        device=sharding.mesh.devices.flat[0])
+    return from_local(local, sharding, shape)
+
+
+def replicate_like(t: torch.Tensor, ref) -> torch.Tensor:
+    """``t`` as ``ref`` takes it: unchanged beside a plain tensor; beside a
+    DTensor, replicated on its mesh (``t`` is a constant every rank
+    computes alike, such as positions or a mask)."""
+    if not is_dtensor(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    dm = ref.device_mesh
+    return DTensor.from_local(t, dm, [Replicate()] * dm.ndim,
+                              run_check=False)
+
+
+def _contiguous(shape) -> Tuple[int, ...]:
+    out, acc = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= int(d)
+    return tuple(reversed(out))
 
 
 def named_sharding(mesh: Mesh, *axes: Optional[str]) -> NamedSharding:

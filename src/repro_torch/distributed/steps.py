@@ -1,8 +1,9 @@
-"""Step builders and abstract input specs of the gspmd path, on one device.
+"""Step builders and abstract input specs of the gspmd path.
 
 The JAX package jits these steps with explicit shardings over the mesh; on
 one card the train step is plain autograd (``train_loss`` -> gradients ->
-``clip_by_global_norm`` -> ``optimizer.update``), and the prefill and
+``clip_by_global_norm`` -> ``optimizer.update``); on a process mesh the
+same train step runs on DTensors placed by those shardings; the prefill and
 decode steps call the model's ``prefill`` / ``decode_step`` eagerly:
 ``encdec``'s for the encoder-decoder, ``causal_lm``'s for every other
 family (the hybrid and xLSTM included: they are served this way, never
@@ -13,7 +14,8 @@ The abstract inputs (:func:`input_specs`, :func:`decode_state_specs`,
 package's trees.  :func:`cache_shardings` and :func:`batch_shardings` give
 the JAX package's specs over a :class:`~repro_torch.distributed.sharding.Mesh`;
 :func:`build_jitted` assembles a step, its abstract arguments and the
-parameters' shardings as the JAX package's does, and runs on one device.
+parameters' shardings as the JAX package's does, and runs on one device or,
+for a train step, sharded over a process mesh.
 
 Step kinds per input shape:
 * train_4k    -> ``train_step(params, opt_state, batch)``
@@ -32,9 +34,10 @@ from repro_torch.core.opgraph import tree_leaves
 from repro_torch.core.rad import tree_map
 from repro_torch.models import causal_lm, encdec
 from repro_torch.optim import Optimizer, clip_by_global_norm
-from .params import (batch_spec, generic_spec, param_shardings,
+from .params import (batch_spec, generic_spec, param_shardings, place_tree,
                      tree_map_with_path, tree_path_str)
-from .sharding import Mesh, NamedSharding, PartitionSpec as P
+from .sharding import (Mesh, NamedSharding, PartitionSpec as P, is_dtensor,
+                       replicate_like)
 
 
 # ============================================================ input specs ==
@@ -151,17 +154,25 @@ def value_and_grad(fn: Callable, params, has_aux: bool = False):
     """``jax.value_and_grad`` by autograd: ``(fn(params), grads)``, or with
     ``has_aux`` ``((loss, aux), grads)`` for an ``fn`` returning (loss,
     aux); grads has params' key paths, and nothing returned holds the
-    graph."""
+    graph.  A DTensor parameter's gradient is reduced to the parameter's
+    placements (autograd leaves it where the backward put it, often
+    ``Partial``), as JAX's gradients carry the parameters' shardings."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
         out = fn(leaves)
     loss = out[0] if has_aux else out
     flat = tree_leaves(leaves)
     grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
-    grads = tree_map(lambda p: grads[id(p)], leaves)
+    grads = tree_map(lambda p: _placed_like(grads[id(p)], p), leaves)
     if has_aux:
         return (loss.detach(), tree_map(lambda v: v.detach(), out[1])), grads
     return loss.detach(), grads
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    if not is_dtensor(p) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def loss_and_grad(cfg: ModelCfg, params, batch):
@@ -184,7 +195,8 @@ def make_train_step(cfg: ModelCfg, optimizer: Optimizer,
             # rebinding drops the unclipped tree before the update
             grads, gnorm = clip_by_global_norm(grads, grad_clip)
         else:
-            gnorm = torch.zeros((), dtype=torch.float32, device=loss.device)
+            gnorm = replicate_like(torch.zeros((), dtype=torch.float32,
+                                               device=loss.device), loss)
         params, opt_state = optimizer.update(grads, opt_state, params)
         out_metrics = {"loss": loss, "grad_norm": gnorm}
         out_metrics.update(metrics)
@@ -234,6 +246,19 @@ def _abstract(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
 
+def _placed_step(step: Callable, p_sh, opt_sh, b_sh) -> Callable:
+    """``step`` with ``jax.jit``'s placement of a train step's arguments
+    (``in_shardings``) and results (``out_shardings=(p_sh, opt_sh,
+    None)``) on a process mesh."""
+    def train_step(params, opt_state, batch):
+        params, opt_state, metrics = step(place_tree(params, p_sh),
+                                          place_tree(opt_state, opt_sh),
+                                          place_tree(batch, b_sh))
+        return (place_tree(params, p_sh), place_tree(opt_state, opt_sh),
+                metrics)
+    return train_step
+
+
 def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
                  optimizer: Optional[Optimizer] = None,
                  param_overrides: Optional[Dict[str, P]] = None,
@@ -251,12 +276,24 @@ def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
     written, with no trace to compile against the shardings.  Nothing is
     donated: the step returns new tensors and writes none of its inputs, so
     there is no buffer for it to reuse.  ``remat`` changes nothing, as in
-    JAX (the model checkpoints its blocks by ``cfg.remat``).  A mesh whose
-    positions hold several distinct devices raises ``NotImplementedError``:
-    placing shards across cards needs DTensor and a process group, which
-    the port does not have."""
+    JAX (the model checkpoints its blocks by ``cfg.remat``).
+
+    On a process mesh (``launch.mesh.make_process_mesh``) the train step
+    takes and returns DTensors: its arguments are redistributed to
+    ``meta["in_shardings"]`` and the new parameters and optimizer state to
+    the shardings JAX's ``out_shardings`` names, and a plain tensor among
+    them raises; run it under ``use_mesh(mesh)`` for the model's
+    ``constrain`` calls, as the JAX package's callers do.  The prefill and
+    decode steps are not sharded over processes yet.  A mesh of devices in
+    one process whose positions hold several distinct devices raises
+    ``NotImplementedError``: placing shards across them needs the process
+    mesh."""
     del remat
-    if len(mesh.distinct_devices()) > 1:
+    if mesh.is_process_mesh and shape.kind != "train":
+        raise NotImplementedError(
+            f"build_jitted on {mesh!r}: a {shape.kind} step is not sharded "
+            f"over processes; only the train step is")
+    if not mesh.is_process_mesh and len(mesh.distinct_devices()) > 1:
         raise NotImplementedError(
             f"build_jitted on {mesh!r}: the port runs a step on one device "
             f"and places no shards across several")
@@ -274,7 +311,10 @@ def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
                                                           mesh)), opt_abs)
         batch_abs = input_specs(cfg, shape)
         b_sh = batch_shardings(batch_abs, mesh, B)
-        return (make_train_step(cfg, optimizer), (p_abs, opt_abs, batch_abs),
+        step = make_train_step(cfg, optimizer)
+        if mesh.is_process_mesh:
+            step = _placed_step(step, p_sh, opt_sh, b_sh)
+        return (step, (p_abs, opt_abs, batch_abs),
                 {"param_sh": p_sh, "in_shardings": (p_sh, opt_sh, b_sh)})
 
     if shape.kind == "prefill":

@@ -13,6 +13,7 @@ caller's.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
+from repro_torch.distributed.sharding import is_dtensor
 from .layers import apply_rope, dense, dense_init, init_device
 
 NEG_INF = -1e30
@@ -48,14 +50,20 @@ def attn_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
     return p
 
 
-def _project_qkv(p, x_q, x_kv, n_heads, n_kv, head_dim):
-    B, Sq = x_q.shape[:2]
-    Skv = x_kv.shape[1]
+def _project_flat(p, x_q, x_kv):
+    """q, k, v with the heads still flat: (B, S, H·hd)."""
     q = dense({"w": p["wq"]["w"]}, x_q)
     k = dense({"w": p["wk"]["w"]}, x_kv)
     v = dense({"w": p["wv"]["w"]}, x_kv)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return q, k, v
+
+
+def _project_qkv(p, x_q, x_kv, n_heads, n_kv, head_dim):
+    B, Sq = x_q.shape[:2]
+    Skv = x_kv.shape[1]
+    q, k, v = _project_flat(p, x_q, x_kv)
     return (q.reshape(B, Sq, n_heads, head_dim),
             k.reshape(B, Skv, n_kv, head_dim),
             v.reshape(B, Skv, n_kv, head_dim))
@@ -106,19 +114,67 @@ def attn_train(p, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
                rope_fraction: float = 1.0, rope_theta: float = 10_000.0,
                x_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence attention (training / encoder).  ``x_kv`` switches to
-    cross-attention (both sides get positions of their own sequence)."""
+    cross-attention (both sides get positions of their own sequence).
+
+    On DTensors (a process mesh) the projections run sharded and the
+    attention itself runs on each rank's batch rows and heads
+    (:func:`_attend_sharded`), as GSPMD partitions it."""
     src = x if x_kv is None else x_kv
-    q, k, v = _project_qkv(p, x, src, n_heads, n_kv, head_dim)
+    q, k, v = _project_flat(p, x, src)
+    core = functools.partial(
+        _attend, head_dim=head_dim, causal=causal and x_kv is None,
+        window=window, rope_fraction=rope_fraction, rope_theta=rope_theta)
+    if is_dtensor(q):
+        out = _attend_sharded(core, q, k, v, n_kv)
+    else:
+        out = core(q, k, v)
+    return dense({"w": p["wo"]["w"]}, out)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            head_dim: int, causal: bool, window: Optional[int],
+            rope_fraction: float, rope_theta: float) -> torch.Tensor:
+    """Attention of flat q (B, Sq, H·hd) over flat k, v (B, Skv, Hkv·hd):
+    heads split, RoPE, mask, :func:`sdpa`, heads merged.  The head counts
+    come from the shapes, so it runs on any rank's share of the heads."""
+    B, Sq = q.shape[:2]
+    Skv = k.shape[1]
+    q = q.reshape(B, Sq, -1, head_dim)
+    k = k.reshape(B, Skv, -1, head_dim)
+    v = v.reshape(B, Skv, -1, head_dim)
     if rope_fraction > 0:
-        qpos = torch.arange(x.shape[1], device=x.device)[None]
-        kpos = torch.arange(src.shape[1], device=x.device)[None]
+        qpos = torch.arange(Sq, device=q.device)[None]
+        kpos = torch.arange(Skv, device=q.device)[None]
         q = apply_rope(q, qpos, rope_fraction, rope_theta)
         k = apply_rope(k, kpos, rope_fraction, rope_theta)
-    mask = make_mask(x.shape[1], src.shape[1], causal and x_kv is None,
-                     window, device=x.device)
+    mask = make_mask(Sq, Skv, causal, window, device=q.device)
     out = sdpa(q, k, v, mask)
-    B, S = x.shape[:2]
-    return dense({"w": p["wo"]["w"]}, out.reshape(B, S, n_heads * head_dim))
+    return out.reshape(B, Sq, -1)
+
+
+def _attend_sharded(core, q, k, v, n_kv: int):
+    """``core`` on DTensor q, k, v, each rank on its share: the rows of the
+    batch where the mesh shards it, and the heads on the ``model`` axis
+    where it divides the KV heads (GQA groups stay whole on a rank);
+    otherwise the heads are gathered on that axis first (gpt2-xl's 25
+    heads over 2).  The attention is independent across batch rows and
+    heads, so each rank computes its share exactly as one device would."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    target = []
+    for name, size, pl in zip(mesh.mesh_dim_names, mesh.shape, q.placements):
+        if isinstance(pl, Shard) and pl.dim == 0:
+            target.append(pl)
+        elif name == "model" and n_kv % size == 0:
+            target.append(Shard(2))
+        else:
+            target.append(Replicate())
+    target = tuple(target)
+    q, k, v = (t.redistribute(mesh, target) for t in (q, k, v))
+    return local_map(core, out_placements=list(target),
+                     in_placements=(target, target, target),
+                     device_mesh=mesh)(q, k, v)
 
 
 def attn_prefill(p, x: torch.Tensor, *, n_heads: int, n_kv: int,

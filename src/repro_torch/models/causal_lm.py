@@ -43,6 +43,7 @@ import torch
 from repro_torch.configs.base import ModelCfg
 from repro_torch.core.opgraph import split_generator
 from repro_torch.core.rad import tree_map
+from repro_torch.distributed.sharding import constrain, replicate_like
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
@@ -532,7 +533,8 @@ def _embed_tokens(cfg: ModelCfg, params, tokens, prefix_embeds, pos0=0):
     x = embed(params["embed"], tokens, cfg.dtype)
     if cfg.rope_fraction == 0.0:
         S = tokens.shape[1]
-        pos = torch.arange(pos0, pos0 + S, device=tokens.device)
+        pos = replicate_like(torch.arange(pos0, pos0 + S,
+                                          device=tokens.device), tokens)
         x = x + embed(params["pos_embed"], pos, cfg.dtype)[None]
     if cfg.n_prefix > 0:
         if prefix_embeds is None:
@@ -555,17 +557,20 @@ def forward(cfg: ModelCfg, params, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None,
             window: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits, aux_loss).  The JAX
-    package's sharding ``constrain`` calls are the identity on one device
-    and are left out."""
+    """Full-sequence forward.  Returns (logits, aux_loss).  The sharding
+    ``constrain`` calls are the JAX package's: the identity on one device,
+    a redistribution of DTensors on a process mesh."""
     window = window if window is not None else cfg.window
     x = _embed_tokens(cfg, params, tokens, prefix_embeds)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = _constrain_act(x)
+    aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                     device=x.device), x)
     for seg in segments(cfg):
         p_seg = params[seg.name]
         if seg.kind == "moe":
             block = _checkpointed(
-                cfg, lambda h, pl: _moe_block(cfg, pl, h, window))
+                cfg, lambda h, pl: _constrain_aux(_moe_block(cfg, pl, h,
+                                                             window)))
             x, auxs = scan(block, x, p_seg)
             aux = aux + torch.stack(auxs).sum()
         elif seg.kind == "zamba_group":
@@ -574,7 +579,7 @@ def forward(cfg: ModelCfg, params, tokens: torch.Tensor,
             def group(h, pl_g, sp):
                 h, _ = scan(lambda h2, pl: (_mamba_block(cfg, pl, h2), None),
                             h, pl_g)
-                return _shared_attn_apply(cfg, sp, h, window)
+                return _constrain_act(_shared_attn_apply(cfg, sp, h, window))
             block = _checkpointed(cfg, group)
             for g, pl_g in enumerate(unstack(p_seg)):
                 x = block(x, pl_g, shared[g % len(shared)])
@@ -582,18 +587,27 @@ def forward(cfg: ModelCfg, params, tokens: torch.Tensor,
             def group(h, pl_g):
                 h, _ = scan(lambda h2, pl: (_mlstm_block(cfg, pl, h2), None),
                             h, pl_g["m"])
-                return _slstm_block(cfg, pl_g["s"], h)
+                return _constrain_act(_slstm_block(cfg, pl_g["s"], h))
             block = _checkpointed(cfg, group)
             for pl_g in unstack(p_seg):
                 x = block(x, pl_g)
         else:
-            fn = {"dense": lambda h, pl: _dense_block(cfg, pl, h, window),
+            fn = {"dense": lambda h, pl: _constrain_act(
+                      _dense_block(cfg, pl, h, window)),
                   "mamba": lambda h, pl: _mamba_block(cfg, pl, h),
                   "mlstm": lambda h, pl: _mlstm_block(cfg, pl, h)}[seg.kind]
             block = _checkpointed(cfg, fn)
             x, _ = scan(lambda h, pl: (block(h, pl), None), x, p_seg)
     x = norm_apply(cfg.norm, params["final_norm"], x)
-    return _head(cfg, params, x), aux
+    return constrain(_head(cfg, params, x), ("batch", None, "vocab")), aux
+
+
+def _constrain_act(h):
+    return constrain(h, ("batch", "act_seq", None))
+
+
+def _constrain_aux(h_aux):
+    return _constrain_act(h_aux[0]), h_aux[1]
 
 
 def _shared_blocks(params) -> List[Dict[str, Any]]:
@@ -610,8 +624,9 @@ def _head(cfg, params, x):
         logits = dense(params["head"], x)
     if cfg.vocab_padded != cfg.vocab:
         # mask padding classes so the softmax is over the true vocabulary
-        valid = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
-        logits = torch.where(valid, logits, logits.new_full((), -1e30))
+        valid = replicate_like(
+            torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab, x)
+        logits = torch.where(valid, logits, -1e30)
     return logits
 
 

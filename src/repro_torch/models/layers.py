@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
+from repro_torch.distributed.sharding import is_dtensor, replicate_like
 
 Params = Dict[str, torch.Tensor]
 
@@ -91,7 +92,36 @@ def embed(p: Params, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
     t = p["table"]
     if dtype is not None:
         t = t.to(dtype)
+    if is_dtensor(t):
+        return _embed_sharded(t, replicate_like(tokens, t))
     return t[tokens.to(torch.int64)]
+
+
+def _embed_sharded(table, tokens):
+    """The lookup on a DTensor table, each rank on its tokens: the table's
+    rows are gathered where they are sharded (and its columns where the
+    tokens are sharded on the same mesh axis), the columns stay sharded
+    elsewhere.  A rank's rows of the table's gradient cover only its
+    tokens, so the gradient is ``Partial`` on the axes that shard the
+    tokens and the sums meet where the optimizer places it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    t_pl, tok_pl, out_pl, grad_pl = [], [], [], []
+    for tp, kp in zip(table.placements, tokens.placements):
+        by_tokens = isinstance(kp, Shard)
+        cols = isinstance(tp, Shard) and tp.dim == 1 and not by_tokens
+        t_pl.append(Shard(1) if cols else Replicate())
+        tok_pl.append(kp if by_tokens else Replicate())
+        out_pl.append(kp if by_tokens else
+                      Shard(tokens.dim()) if cols else Replicate())
+        grad_pl.append(Partial() if by_tokens else t_pl[-1])
+    table = table.redistribute(mesh, t_pl)
+    tokens = tokens.redistribute(mesh, tok_pl)
+    return local_map(lambda t, k: t[k.to(torch.int64)],
+                     out_placements=out_pl, in_placements=(t_pl, tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl),
+                     device_mesh=mesh)(table, tokens)
 
 
 # -------------------------------------------------------------------- RoPE --
@@ -186,12 +216,21 @@ def causal_conv1d_step(p: Params, x_t: torch.Tensor, window: torch.Tensor
 # -------------------------------------------------------------------- loss --
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_id: int = -1, z_loss: float = 0.0) -> torch.Tensor:
-    """Mean token cross-entropy; labels == ignore_id are masked out."""
+    """Mean token cross-entropy; labels == ignore_id are masked out.
+
+    On DTensor logits (sharded over the vocabulary on a process mesh) the
+    gold logit is a one-hot sum over the sharded axis: each rank sums its
+    slice of the classes, the partial sums add up to the one entry."""
     logits = logits.to(torch.float32)
     labels = labels.to(torch.int64)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        torch.clamp(labels, min=0)[..., None])[..., 0]
+    safe = torch.clamp(labels, min=0)
+    if is_dtensor(logits):
+        classes = replicate_like(
+            torch.arange(logits.shape[-1], device=logits.device), logits)
+        gold = torch.where(classes == safe[..., None], logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = lse - gold
     if z_loss > 0.0:
         nll = nll + z_loss * torch.square(lse)

@@ -9,6 +9,9 @@ against the JAX package run unchanged: it changes nothing.
 Each stacked leaf is split once with ``torch.unbind``: autograd's backward
 of ``leaf[i]`` builds a zero tensor the size of the whole stacked leaf for
 every layer, while ``unbind``'s backward stacks the layers' gradients once.
+A DTensor leaf sharded over its stacked axis (a stacked ``(L, d)`` norm
+scale, whose second to last axis the sharding rules put on ``data``) is
+gathered on that axis first, as XLA gathers a scan's sharded operand.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import contextlib
 from typing import Any, Callable, List, Mapping, Optional, Tuple
 
 import torch
+
+from repro_torch.distributed.sharding import is_dtensor
 
 
 def unstack(tree: Any) -> List[Any]:
@@ -25,7 +30,18 @@ def unstack(tree: Any) -> List[Any]:
         keys = list(tree)
         parts = [unstack(tree[k]) for k in keys]
         return [dict(zip(keys, layer)) for layer in zip(*parts)]
-    return list(torch.unbind(tree, 0))
+    return list(torch.unbind(_gather_axis0(tree), 0))
+
+
+def _gather_axis0(t: torch.Tensor) -> torch.Tensor:
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    placements = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+                  for p in t.placements]
+    if placements == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, placements)
 
 
 def scan(body: Callable[[Any, Any], Tuple[Any, Any]], init: Any, xs: Any,

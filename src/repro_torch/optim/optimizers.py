@@ -9,6 +9,10 @@ formula: ``update`` returns new tensors and leaves its inputs as they were.
 
 Schedules map the step (a 0-dim int tensor) to a 0-dim float32 tensor on
 the CPU, which scales tensors on any device.
+
+On DTensor parameters (a process mesh) the state is placed as the JAX
+package's ``build_jitted`` places it (``generic_spec`` of each leaf's
+shape; the step counter replicated), and the update runs on DTensors.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import torch
 
 from repro_torch.core.opgraph import tree_leaves
 from repro_torch.core.rad import tree_map
+from repro_torch.distributed.params import generic_spec
+from repro_torch.distributed.sharding import NamedSharding, mesh_of, zeros
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -38,6 +44,26 @@ class Optimizer:
 
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
+
+
+def _state_zeros(p: torch.Tensor, shape, dtype=torch.float32
+                 ) -> torch.Tensor:
+    """Optimizer state of ``shape`` for parameter ``p``: on ``p``'s
+    device, or on its process mesh placed by ``generic_spec``."""
+    mesh = mesh_of(p)
+    if mesh is None:
+        return p.new_zeros(shape, dtype=dtype)
+    return zeros(shape, dtype, NamedSharding(mesh, generic_spec(
+        tuple(shape), mesh)))
+
+
+def _step0(params) -> torch.Tensor:
+    """The step counter: a 0-dim int32 on the CPU, or replicated on the
+    parameters' process mesh."""
+    mesh = mesh_of(next(iter(tree_leaves(params)), None))
+    if mesh is None:
+        return torch.zeros((), dtype=torch.int32)
+    return zeros((), torch.int32, NamedSharding(mesh, ()))
 
 
 # -------------------------------------------------------------- schedules --
@@ -82,8 +108,9 @@ def sgd(lr=1e-2, momentum: float = 0.9, nesterov: bool = False,
     sched = _as_sched(lr)
 
     def init(params):
-        mom = tree_map(torch.zeros_like, params) if momentum else None
-        return OptState(step=torch.zeros((), dtype=torch.int32), inner=mom)
+        mom = tree_map(lambda p: _state_zeros(p, p.shape, p.dtype),
+                       params) if momentum else None
+        return OptState(step=_step0(params), inner=mom)
 
     def update(grads, state, params):
         lr_t = sched(state.step)
@@ -108,10 +135,10 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     sched = _as_sched(lr)
 
     def init(params):
-        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
-        return OptState(step=torch.zeros((), dtype=torch.int32),
-                        inner={"m": tree_map(zeros, params),
-                               "v": tree_map(zeros, params)})
+        fresh = lambda p: _state_zeros(p, p.shape)  # noqa: E731
+        return OptState(step=_step0(params),
+                        inner={"m": tree_map(fresh, params),
+                               "v": tree_map(fresh, params)})
 
     def update(grads, state, params):
         t = state.step + 1
@@ -150,14 +177,12 @@ def adafactor(lr=1e-3, decay: float = 0.8, eps: float = 1e-30,
 
     def _facts(p):
         if p.dim() < 2:
-            return {"v": torch.zeros_like(p, dtype=torch.float32)}
-        return {"r": p.new_zeros(p.shape[:-1], dtype=torch.float32),
-                "c": p.new_zeros(p.shape[:-2] + p.shape[-1:],
-                                 dtype=torch.float32)}
+            return {"v": _state_zeros(p, p.shape)}
+        return {"r": _state_zeros(p, p.shape[:-1]),
+                "c": _state_zeros(p, p.shape[:-2] + p.shape[-1:])}
 
     def init(params):
-        return OptState(step=torch.zeros((), dtype=torch.int32),
-                        inner=tree_map(_facts, params))
+        return OptState(step=_step0(params), inner=tree_map(_facts, params))
 
     def update(grads, state, params):
         t = state.step + 1

@@ -370,7 +370,8 @@ def test_module_trees_equal():
                         if "__pycache__" not in p.parts}
     missing = sorted(rel(ref) - rel(port))
     assert missing == []
-    # the package marker, the device resolver and the weight converter
+    # the package marker, the device resolver, the weight converter and
+    # the launcher of ranks (JAX's one process drives every device)
     assert sorted(rel(port) - rel(ref)) == ["__init__.py",
                                             "checkpoint/convert.py",
-                                            "device.py"]
+                                            "device.py", "launch/spmd.py"]
