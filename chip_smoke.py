@@ -188,8 +188,10 @@ from __future__ import annotations
 import collections
 import dataclasses
 import gc
+import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2974,10 +2976,7 @@ def spmd_rank(rank, dev):
         if i == 0:
             after_first = params
         if i == 1:                      # a steady step's collectives
-            comm = {str(k).rsplit(".", 1)[-1]: v
-                    for k, v in mode.get_comm_counts().items()}
-            comm = {k: {"count": v, "staged_as": STAGED_KIND.get(k, k)}
-                    for k, v in comm.items()}
+            comm = comm_counts(mode)
             comm["staged"] = staged
     peak = torch.cuda.max_memory_allocated(dev)
     launches = launch_counts()
@@ -3021,6 +3020,15 @@ STAGED_KIND = {"all_gather_into_tensor": "all_gather",
                "reduce_scatter_tensor": "reduce_scatter",
                "all_reduce": "all_reduce", "all_to_all_single": "all_to_all",
                "shard_dim_alltoall": "all_to_all"}
+
+
+def comm_counts(mode) -> dict:
+    """CommDebugMode's counts by collective, with the staged group's name
+    for each."""
+    counts = {str(k).rsplit(".", 1)[-1]: v
+              for k, v in mode.get_comm_counts().items()}
+    return {k: {"count": v, "staged_as": STAGED_KIND.get(k, k)}
+            for k, v in counts.items()}
 
 
 def run_spmd_path(dev):
@@ -3087,6 +3095,422 @@ def run_spmd_path(dev):
         print(f"spmd rank {r['rank']} {r['coordinate']}: " + json.dumps(
             {k: r[k] for k in ("argument_bytes", "peak_mem_gb", "step_s",
                                "collectives_step_2")}))
+    return launches
+
+
+# ========================================== MoE sharded over processes ==
+SPMD_MOE_ARCH = "mixtral-8x7b"
+SPMD_MOE_LAYERS = 2         # of 32: the 4 ranks share one card's 80 GB
+SPMD_MOE_STEPS = 2          # Adafactor steps under the default rules
+SPMD_MOE_GAP = 1e-5         # step 1 against the unsharded step, rel
+SPMD_SERVE_BATCH = 4
+SPMD_PROMPT = 128
+SPMD_CACHE_LEN = 256
+SPMD_NEW = 16               # greedy decode steps
+SPMD_LOGIT_GAP = 1e-5       # served logits vs unsharded, rel to max |logit|
+SPMD_CACHE_GAP = 1e-5       # final cache shards vs unsharded slices, rel
+
+
+def spmd_moe_cfg():
+    """mixtral-8x7b at full width, cut to SPMD_MOE_LAYERS layers."""
+    from repro_torch.configs import resolve
+    cfg = resolve(SPMD_MOE_ARCH).full
+    cfg = cfg.replace(n_layers=SPMD_MOE_LAYERS,
+                      name=f"{cfg.name}-l{SPMD_MOE_LAYERS}")
+    if cfg.moe_impl != "capacity":
+        raise AssertionError(f"{cfg.name}: moe_impl {cfg.moe_impl!r}")
+    return cfg
+
+
+def owned_shards(tree):
+    """Each DTensor leaf on a copy of its local shard: a shard taken as a
+    slice may be a view that keeps the whole tensor alive."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core.rad import tree_map
+    return tree_map(lambda d: DTensor.from_local(
+        d.to_local().clone(), d.device_mesh, d.placements, run_check=False,
+        shape=d.shape, stride=d.stride()), tree)
+
+
+def spmd_moe_rank(rank, dev):
+    """One rank of the spmd-moe phase (see :func:`run_spmd_moe_path`)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs import InputShape
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.core.rad import tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.params import shard_tree
+    from repro_torch.distributed.sharding import (distribute, from_local,
+                                                  use_mesh)
+    from repro_torch.distributed.steps import (build_jitted,
+                                               make_decode_step,
+                                               make_prefill_step,
+                                               make_train_step)
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import causal_lm
+    from repro_torch.optim import adafactor
+    from repro_torch.perf import overrides
+
+    cfg = spmd_moe_cfg()
+    mesh = make_process_mesh(*SPMD_MESH, dev)
+    world = mesh.size
+    fn, args, meta = build_jitted(cfg, mesh, InputShape("spmd-moe", SEQ,
+                                                        BATCH, "train"))
+    p_sh, o_sh, b_sh = meta["in_shardings"]
+    opt = adafactor(1e-3)
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0, order=1)
+    batches = [{k: torch.as_tensor(v, dtype=torch.int32, device=dev)
+                for k, v in ds.batch(BATCH, i).items()}
+               for i in range(SPMD_MOE_STEPS)]
+    prompt = torch.as_tensor(
+        SyntheticLM(vocab=cfg.vocab, seq_len=SPMD_PROMPT, seed=1, order=1)
+        .batch(SPMD_SERVE_BATCH, 0)["tokens"], dtype=torch.long, device=dev)
+
+    def whole_params():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)              # every rank draws the same tree
+        return causal_lm.init(cfg, gen)
+
+    def greedy(logits):
+        return torch.argmax(logits[:, -1], dim=-1)[:, None]
+
+    def real(logits):
+        """The last position's logits over the real vocabulary (padded
+        classes sit at -1e30)."""
+        return logits[:, -1, :cfg.vocab].cpu().numpy()
+
+    # the unsharded reference, on rank 0 alone, before the sharded run:
+    # step 1 and the served tokens; its results wait on the host
+    ref = {}
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats(dev)
+        whole = whole_params()
+        t0 = time.perf_counter()
+        new, _, m = make_train_step(cfg, opt)(
+            whole, opt.init(whole), {k: v.long() for k, v in
+                                     batches[0].items()})
+        torch.cuda.synchronize(dev)
+        ref["train"] = {"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "step_s": time.perf_counter() - t0}
+        ref_new = [t.cpu() for t in tree_leaves(new)]
+        del new, m
+        logits, cache = make_prefill_step(cfg, SPMD_CACHE_LEN, cfg.window)(
+            whole, {"tokens": prompt})
+        step = make_decode_step(cfg, cfg.window)
+        ref_logits, ref_tokens = [real(logits)], []
+        for _ in range(SPMD_NEW):
+            tok = greedy(logits)
+            ref_tokens.append(tok[:, 0].tolist())
+            logits, cache = step(whole, cache, tok)
+            ref_logits.append(real(logits))
+        ref["serve"] = {"logits": ref_logits, "tokens": ref_tokens,
+                        "cache": {k: cache["blocks"][k].cpu().numpy()
+                                  for k in ("k", "v")},
+                        "pos": int(cache["pos"])}
+        del whole, logits, cache
+        ref["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    tk.reset_launch_counts()            # the sharded run's launches alone
+
+    # each rank in turn draws the whole tree and keeps its shards
+    params = None
+    for r in range(world):
+        if r == rank:
+            params = owned_shards(shard_tree(whole_params(), p_sh))
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    init_host = tree_map(lambda d: d.to_local().cpu(), params)
+
+    def initial():
+        return tree_map(lambda h, a, sh: from_local(h.to(dev), sh, a.shape),
+                        init_host, args[0], p_sh)
+
+    sharded = [shard_tree(b, b_sh) for b in batches]
+    state = opt.init(params)
+    arg_bytes = {"params": local_bytes(params), "opt_state":
+                 local_bytes(state), "batch": local_bytes(sharded[0])}
+    want = argument_bytes_by_leaves(args, meta["in_shardings"])
+    del state
+
+    mine_ref = []                       # this rank's shards of the reference
+    coords = [dict(zip(mesh.axis_names, c)) for c in
+              itertools.product(*map(range, mesh.shape.values()))]
+
+    def params_gap(new):
+        """The updated parameters' gap to the reference, as one vector:
+        rank 0 scatters each rank's slices of its host copy, host to host
+        through the staged group, and each rank sums on the host."""
+        num = den = 0.0
+        for j, (got, sh) in enumerate(zip(tree_leaves(new),
+                                          tree_leaves(p_sh))):
+            if len(mine_ref) <= j:
+                shape = tuple(got.shape)
+                mine = torch.empty(sh.shard_shape(shape), dtype=got.dtype)
+                parts = None
+                if rank == 0:
+                    parts = [ref_new[j][sh.local_slices(shape, c)]
+                             .contiguous() for c in coords]
+                dist.scatter(mine, parts, src=0)
+                mine_ref.append(mine)
+                del parts
+            theirs = mine_ref[j].double()
+            d = got.to_local().cpu().double() - theirs
+            num += float((d * d).sum())
+            den += float((theirs * theirs).sum())
+        sums = torch.tensor([num, den], dtype=torch.float64)
+        dist.all_reduce(sums)
+        return math.sqrt(float(sums[0]) / float(sums[1]))
+
+    def train(rules, n_steps):
+        params = initial()
+        state = opt.init(params)
+        out = {"losses": [], "grad_norms": [], "step_s": [], "steps": []}
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(n_steps):
+            spmd.reset_staged_counts()
+            mode = CommDebugMode()
+            dist.barrier()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with use_mesh(mesh, rules), mode:
+                params, state, m = fn(params, state, sharded[i])
+            torch.cuda.synchronize(dev)
+            out["step_s"].append(time.perf_counter() - t0)
+            out["losses"].append(float(m["loss"].full_tensor()))
+            out["grad_norms"].append(float(m["grad_norm"].full_tensor()))
+            out["steps"].append({"collectives": comm_counts(mode),
+                                 "staged": spmd.staged_counts()})
+            del m
+            gc.collect()
+            torch.cuda.empty_cache()
+            if i == 0:
+                out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) \
+                    / 1e9
+                out["peak_reserved_gb"] = \
+                    torch.cuda.max_memory_reserved(dev) / 1e9
+                out["params_rel_gap"] = params_gap(params)
+        del params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    del params
+    runs = {"default": train(None, SPMD_MOE_STEPS),
+            "ep": train(overrides.get("ep")["rules"], 1)}
+
+    # serving on the same weights: the sharded prefill into a cache placed
+    # by cache_shardings of the decode shape, then greedy decode steps
+    params = initial()
+    pf, _, p_meta = build_jitted(cfg, mesh, InputShape(
+        "spmd-moe-prefill", SPMD_CACHE_LEN, SPMD_SERVE_BATCH, "prefill"))
+    df, _, d_meta = build_jitted(cfg, mesh, InputShape(
+        "spmd-moe-decode", SPMD_CACHE_LEN, SPMD_SERVE_BATCH, "decode"))
+    _, pb_sh = p_meta["in_shardings"]
+    _, c_sh, t_sh = d_meta["in_shardings"]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    spmd.reset_staged_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with use_mesh(mesh):
+        logits, cache = pf(params, shard_tree({"tokens": prompt}, pb_sh))
+    torch.cuda.synchronize(dev)
+    serve = {"prefill_s": time.perf_counter() - t0,
+             "prefill_staged": spmd.staged_counts(), "decode_ms": [],
+             "tokens": []}
+    full = logits.full_tensor()
+    got_logits = [real(full)]
+    cache_pl = {k: [str(p) for p in cache["blocks"][k].placements]
+                for k in ("k", "v")}
+    want_pl = {k: [str(p) for p in c_sh["blocks"][k].placements]
+               for k in ("k", "v")}
+    for i in range(SPMD_NEW):
+        tok = greedy(full)
+        serve["tokens"].append(tok[:, 0].tolist())
+        spmd.reset_staged_counts()
+        mode = CommDebugMode()
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with use_mesh(mesh), mode:
+            logits, cache = df(params, cache, distribute(tok, t_sh))
+        torch.cuda.synchronize(dev)
+        serve["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 1:                      # a steady step's collectives
+            serve["decode_collectives"] = comm_counts(mode)
+            serve["decode_staged"] = spmd.staged_counts()
+        full = logits.full_tensor()
+        got_logits.append(real(full))
+    launches = launch_counts()
+    serve["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    serve["cache_placements"] = cache_pl
+    serve["cache_placements_want"] = want_pl
+    serve["pos"] = int(cache["pos"].full_tensor())
+
+    def shard(d):
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+        _, offset = compute_local_shape_and_global_offset(
+            d.shape, d.device_mesh, d.placements)
+        return {"values": d.to_local().cpu().numpy(),
+                "offset": tuple(int(o) for o in offset)}
+    serve["cache_shards"] = {k: shard(cache["blocks"][k])
+                             for k in ("k", "v")}
+    if rank == 0:
+        serve["logits"] = got_logits
+    del params, cache, logits, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rank": rank, "coordinate": mesh.coordinate(),
+            "argument_bytes": arg_bytes,
+            "argument_bytes_total": sum(arg_bytes.values()),
+            "argument_bytes_want": want, "train": runs, "serve": serve,
+            "launches": launches, "reference": ref,
+            "n_params": causal_lm.count_params(cfg), "cfg": cfg.name}
+
+
+def run_spmd_moe_path(dev):
+    """mixtral-8x7b at full width (d_model 4096, 8 experts top-2, the
+    capacity dispatch; seed 0, fp32), cut to SPMD_MOE_LAYERS of its 32
+    layers, on a ``(2, 2)`` ``("data", "model")`` process mesh: 4 ranks on
+    this card, joined by the host-staged gloo group.  Trains SPMD_MOE_STEPS
+    Adafactor steps of ``build_jitted``'s step on batches BATCH × SEQ of
+    ``SyntheticLM`` under the default rules, then step 1 again from the
+    same weights under the ``ep`` set; then serves on the same weights:
+    ``build_jitted``'s sharded prefill of a SPMD_PROMPT-token prompt at
+    batch SPMD_SERVE_BATCH into a SPMD_CACHE_LEN-slot cache, and SPMD_NEW
+    greedy steps of its decode step.  The unsharded reference runs on rank
+    0 before the sharded run.  Gates: each rank's argument bytes equal the
+    shardings' sum; step 1's loss, ``grad_norm`` and updated parameters
+    (one vector) within SPMD_MOE_GAP of the unsharded step under each rule
+    set; the served logits within SPMD_LOGIT_GAP of max |logit| at every
+    step, the greedy tokens equal, every shard of the final cache equal to
+    the unsharded cache's slice (rel SPMD_CACHE_GAP) and placed by
+    ``cache_shardings``.  Records step seconds, each rank's peak, a steady
+    step's collectives and staged bytes, prefill seconds and decode ms a
+    step.  Returns the ranks' summed launch counts (no codec: all 0)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import spmd
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"spmd-moe: card free {free / 1e9:.2f} GB of {total / 1e9:.2f} GB "
+          f"before the ranks start")
+    t0 = time.perf_counter()
+    # the ranks' allocators grow by segments: four ranks' freed blocks
+    # would otherwise pin the card's memory between their peaks
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spmd.run(spmd_moe_rank, math.prod(SPMD_MESH[0]),
+                         rdv_dir=str(ROOT / "build" / "spmd"), device=dev,
+                         backend=spmd.STAGED, timeout=SPMD_TIMEOUT)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    wall = time.perf_counter() - t0
+    ref = ranks[0]["reference"]
+    fails = []
+    for r in ranks:
+        if r["argument_bytes_total"] != r["argument_bytes_want"]:
+            fails.append(f"rank {r['rank']}: argument bytes "
+                         f"{r['argument_bytes']} vs "
+                         f"{r['argument_bytes_want']}")
+    gaps = {}
+    for rules, run in ranks[0]["train"].items():
+        if not all(math.isfinite(x) for x in run["losses"]):
+            fails.append(f"{rules}: non-finite loss {run['losses']}")
+        gaps[rules] = {
+            "loss": abs(run["losses"][0] - ref["train"]["loss"])
+            / ref["train"]["loss"],
+            "grad_norm": abs(run["grad_norms"][0] - ref["train"]["grad_norm"])
+            / ref["train"]["grad_norm"],
+            "params": run["params_rel_gap"]}
+        if not max(gaps[rules].values()) <= SPMD_MOE_GAP:
+            fails.append(f"{rules}: step 1 against the unsharded step "
+                         f"{gaps[rules]} (limit {SPMD_MOE_GAP})")
+    serve = ranks[0]["serve"]
+    want_logits = ref["serve"]["logits"]
+    logit_gaps = [float(np.abs(g - w).max() / np.abs(w).max())
+                  for g, w in zip(serve["logits"], want_logits)]
+    if len(logit_gaps) != SPMD_NEW + 1 or \
+            not max(logit_gaps) <= SPMD_LOGIT_GAP:
+        fails.append(f"served logits: {logit_gaps} (limit {SPMD_LOGIT_GAP})")
+    if serve["tokens"] != ref["serve"]["tokens"]:
+        fails.append(f"greedy tokens {serve['tokens']} vs "
+                     f"{ref['serve']['tokens']}")
+    cache_gap = 0.0
+    for r in ranks:
+        s = r["serve"]
+        if s["cache_placements"] != s["cache_placements_want"] or \
+                s["pos"] != ref["serve"]["pos"]:
+            fails.append(f"rank {r['rank']}: cache placed "
+                         f"{s['cache_placements']} at pos {s['pos']}, want "
+                         f"{s['cache_placements_want']} at "
+                         f"{ref['serve']['pos']}")
+        for k, got in s["cache_shards"].items():
+            w = ref["serve"]["cache"][k]
+            sl = tuple(slice(o, o + n) for o, n in
+                       zip(got["offset"], got["values"].shape))
+            cache_gap = max(cache_gap, float(
+                np.abs(got["values"] - w[sl]).max() / np.abs(w).max()))
+    if not cache_gap <= SPMD_CACHE_GAP:
+        fails.append(f"cache shards: {cache_gap} (limit {SPMD_CACHE_GAP})")
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in
+                ranks[0]["launches"]}
+    card = card_line()
+    dec = sorted(serve["decode_ms"])
+    report = {
+        "card": card, "cfg": ranks[0]["cfg"], "n_params":
+        ranks[0]["n_params"],
+        "cut": f"{SPMD_MOE_LAYERS} of 32 layers; full width",
+        "mesh": "(2, 2) data x model, 4 ranks on one card",
+        "backend": spmd.STAGED, "batch": BATCH, "seq": SEQ,
+        "argument_bytes_per_rank": ranks[0]["argument_bytes_want"],
+        "reference": {"train": ref["train"],
+                      "peak_mem_gb": ref["peak_mem_gb"]},
+        "train": {rules: {k: run[k] for k in
+                          ("losses", "grad_norms", "step_s", "peak_mem_gb",
+                           "peak_reserved_gb", "params_rel_gap")}
+                  for rules, run in ranks[0]["train"].items()},
+        "rel_gaps": gaps, "limit": SPMD_MOE_GAP,
+        "collectives_rank_0": {
+            "default_step_2": ranks[0]["train"]["default"]["steps"][-1],
+            "ep_step_1": ranks[0]["train"]["ep"]["steps"][0]},
+        "peak_mem_gb_by_rank": {
+            rules: [r["train"][rules]["peak_mem_gb"] for r in ranks]
+            for rules in ranks[0]["train"]},
+        "serve": {"batch": SPMD_SERVE_BATCH, "prompt": SPMD_PROMPT,
+                  "cache_len": SPMD_CACHE_LEN, "new": SPMD_NEW,
+                  "prefill_s": serve["prefill_s"],
+                  "prefill_staged": serve["prefill_staged"],
+                  "decode_ms_median": dec[len(dec) // 2],
+                  "decode_ms": serve["decode_ms"],
+                  "decode_collectives_rank_0": serve["decode_collectives"],
+                  "decode_staged_rank_0": serve["decode_staged"],
+                  "peak_mem_gb_by_rank": [r["serve"]["peak_mem_gb"]
+                                          for r in ranks],
+                  "max_logit_gap": max(logit_gaps), "limit": SPMD_LOGIT_GAP,
+                  "tokens_equal": serve["tokens"] == ref["serve"]["tokens"],
+                  "cache_shard_gap": cache_gap,
+                  "cache_placements": serve["cache_placements"]},
+        "wall_s": wall, "launches": launches, "failed": fails}
+    print("spmd-moe path: " + json.dumps(report))
+    if fails:
+        raise AssertionError("spmd-moe: " + "; ".join(fails))
     return launches
 
 
@@ -3404,6 +3828,7 @@ def main() -> int:
     paths["entry points"] = run_entry_points(dev)
     paths["train pipeline"], pipeline_cases = run_pipeline_path(dev)
     paths["train spmd"] = run_spmd_path(dev)
+    paths["spmd moe"] = run_spmd_moe_path(dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on its path: "

@@ -356,6 +356,43 @@ def replicate_like(t: torch.Tensor, ref) -> torch.Tensor:
                               run_check=False)
 
 
+def on_shards(fn, out_placements, *args, in_grad_placements=None):
+    """``fn`` on each rank's local shards of the DTensor ``args`` (taken as
+    placed; a non-tensor argument passes through), its results wrapped as
+    DTensors with ``out_placements`` (one sequence, or one per result):
+    ``local_map`` with the placements stated.  ``in_grad_placements``
+    (one per argument; ``None`` for an argument's own placements) says how
+    the local gradients add up: ``Partial`` on an axis where each rank's
+    gradient covers only its share of the work."""
+    from torch.distributed.tensor import Placement
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    if all(isinstance(p, Placement) for p in out_placements):
+        out_placements = list(out_placements)       # one result
+    else:
+        out_placements = tuple(list(p) for p in out_placements)
+    in_pl = tuple(tuple(a.placements) if is_dtensor(a) else None
+                  for a in args)
+    if in_grad_placements is not None:
+        in_grad_placements = tuple(
+            g if g is not None else p
+            for g, p in zip(in_grad_placements, in_pl))
+    return local_map(fn, out_placements=out_placements, in_placements=in_pl,
+                     in_grad_placements=in_grad_placements,
+                     device_mesh=mesh)(*args)
+
+
+def local_offset(global_shape: Sequence[int], device_mesh, placements,
+                 dim: int) -> Tuple[int, int]:
+    """(start, length) along ``dim`` of this rank's shard of a tensor of
+    ``global_shape`` placed by ``placements`` on ``device_mesh``."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(global_shape), device_mesh, placements)
+    return int(offset[dim]), int(shape[dim])
+
+
 def _contiguous(shape) -> Tuple[int, ...]:
     out, acc = [], 1
     for d in reversed(tuple(shape)):

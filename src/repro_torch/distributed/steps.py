@@ -2,20 +2,20 @@
 
 The JAX package jits these steps with explicit shardings over the mesh; on
 one card the train step is plain autograd (``train_loss`` -> gradients ->
-``clip_by_global_norm`` -> ``optimizer.update``); on a process mesh the
-same train step runs on DTensors placed by those shardings; the prefill and
-decode steps call the model's ``prefill`` / ``decode_step`` eagerly:
-``encdec``'s for the encoder-decoder, ``causal_lm``'s for every other
-family (the hybrid and xLSTM included: they are served this way, never
-stage-sharded).
+``clip_by_global_norm`` -> ``optimizer.update``); the prefill and decode
+steps call the model's ``prefill`` / ``decode_step`` eagerly: ``encdec``'s
+for the encoder-decoder, ``causal_lm``'s for every other family (the
+hybrid and xLSTM included: they are served this way, never
+stage-sharded).  On a process mesh the same steps run on DTensors placed by
+those shardings (the dense, vlm and moe families).
 
 The abstract inputs (:func:`input_specs`, :func:`decode_state_specs`,
 :func:`abstract_params`) are tensors on the ``meta`` device, in the JAX
 package's trees.  :func:`cache_shardings` and :func:`batch_shardings` give
 the JAX package's specs over a :class:`~repro_torch.distributed.sharding.Mesh`;
 :func:`build_jitted` assembles a step, its abstract arguments and the
-parameters' shardings as the JAX package's does, and runs on one device or,
-for a train step, sharded over a process mesh.
+parameters' shardings as the JAX package's does, and runs on one device or
+sharded over a process mesh.
 
 Step kinds per input shape:
 * train_4k    -> ``train_step(params, opt_state, batch)``
@@ -246,17 +246,15 @@ def _abstract(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
 
-def _placed_step(step: Callable, p_sh, opt_sh, b_sh) -> Callable:
-    """``step`` with ``jax.jit``'s placement of a train step's arguments
-    (``in_shardings``) and results (``out_shardings=(p_sh, opt_sh,
-    None)``) on a process mesh."""
-    def train_step(params, opt_state, batch):
-        params, opt_state, metrics = step(place_tree(params, p_sh),
-                                          place_tree(opt_state, opt_sh),
-                                          place_tree(batch, b_sh))
-        return (place_tree(params, p_sh), place_tree(opt_state, opt_sh),
-                metrics)
-    return train_step
+def _placed_step(step: Callable, in_sh: tuple, out_sh: tuple) -> Callable:
+    """``step`` with ``jax.jit``'s placement of its arguments
+    (``in_shardings``) and results (``out_shardings``; ``None`` leaves a
+    result where the step put it) on a process mesh."""
+    def placed(*args):
+        out = step(*(place_tree(a, sh) for a, sh in zip(args, in_sh)))
+        return tuple(r if sh is None else place_tree(r, sh)
+                     for r, sh in zip(out, out_sh))
+    return placed
 
 
 def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
@@ -278,21 +276,33 @@ def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
     there is no buffer for it to reuse.  ``remat`` changes nothing, as in
     JAX (the model checkpoints its blocks by ``cfg.remat``).
 
-    On a process mesh (``launch.mesh.make_process_mesh``) the train step
-    takes and returns DTensors: its arguments are redistributed to
-    ``meta["in_shardings"]`` and the new parameters and optimizer state to
-    the shardings JAX's ``out_shardings`` names, and a plain tensor among
-    them raises; run it under ``use_mesh(mesh)`` for the model's
-    ``constrain`` calls, as the JAX package's callers do.  The prefill and
-    decode steps are not sharded over processes yet.  A mesh of devices in
-    one process whose positions hold several distinct devices raises
+    On a process mesh (``launch.mesh.make_process_mesh``) every step takes
+    and returns DTensors: its arguments are redistributed to
+    ``meta["in_shardings"]``, and its results to the shardings JAX's
+    ``out_shardings`` names (the train step's new parameters and optimizer
+    state; the cache a prefill or decode step returns, on
+    ``meta["cache_sh"]``; the logits and metrics stay where the step left
+    them); a plain tensor among the arguments raises.  Run it under
+    ``use_mesh(mesh)`` for the model's ``constrain`` calls, as the JAX
+    package's callers do.  The dense, vlm and moe families run there (the
+    moe family with ``moe_impl="capacity"``); the hybrid, xLSTM and
+    encoder-decoder families and the ragged dispatch raise
+    ``NotImplementedError`` (ROADMAP Q1.6c).  A mesh of devices in one
+    process whose positions hold several distinct devices raises
     ``NotImplementedError``: placing shards across them needs the process
     mesh."""
     del remat
-    if mesh.is_process_mesh and shape.kind != "train":
+    if mesh.is_process_mesh and cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
-            f"build_jitted on {mesh!r}: a {shape.kind} step is not sharded "
-            f"over processes; only the train step is")
+            f"build_jitted on {mesh!r}: the {cfg.family} family "
+            f"({cfg.name}) is not sharded over processes yet (ROADMAP "
+            f"Q1.6c)")
+    if mesh.is_process_mesh and cfg.family == "moe" \
+            and cfg.moe_impl != "capacity":
+        raise NotImplementedError(
+            f"build_jitted on {mesh!r}: {cfg.name} with moe_impl="
+            f"{cfg.moe_impl!r}; only the capacity dispatch is sharded over "
+            f"processes (ROADMAP Q1.6c)")
     if not mesh.is_process_mesh and len(mesh.distinct_devices()) > 1:
         raise NotImplementedError(
             f"build_jitted on {mesh!r}: the port runs a step on one device "
@@ -313,7 +323,8 @@ def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
         b_sh = batch_shardings(batch_abs, mesh, B)
         step = make_train_step(cfg, optimizer)
         if mesh.is_process_mesh:
-            step = _placed_step(step, p_sh, opt_sh, b_sh)
+            step = _placed_step(step, (p_sh, opt_sh, b_sh),
+                                (p_sh, opt_sh, None))
         return (step, (p_abs, opt_abs, batch_abs),
                 {"param_sh": p_sh, "in_shardings": (p_sh, opt_sh, b_sh)})
 
@@ -323,6 +334,8 @@ def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
         c_sh = cache_shardings(decode_state_specs(cfg, shape), mesh, B)
         fn = make_prefill_step(cfg, cache_len=shape.seq_len,
                                window=cfg.window)
+        if mesh.is_process_mesh:
+            fn = _placed_step(fn, (p_sh, b_sh), (None, c_sh))
         return fn, (p_abs, batch_abs), {"param_sh": p_sh,
                                         "in_shardings": (p_sh, b_sh),
                                         "cache_sh": c_sh}
@@ -333,6 +346,9 @@ def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
     tok_abs = _spec((B, 1), torch.int32)
     t_sh = batch_shardings({"t": tok_abs}, mesh, B)["t"]
     fn = make_decode_step(cfg, window=decode_window(cfg, shape))
+    if mesh.is_process_mesh:
+        fn = _placed_step(fn, (p_sh, c_sh, t_sh), (None, c_sh))
     return fn, (p_abs, cache_abs, tok_abs), {"param_sh": p_sh,
                                              "in_shardings": (p_sh, c_sh,
-                                                              t_sh)}
+                                                              t_sh),
+                                             "cache_sh": c_sh}

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
-from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.distributed.sharding import constrain, is_dtensor, on_shards
 from .layers import apply_rope, dense, dense_init, init_device
 
 NEG_INF = -1e30
@@ -152,15 +152,16 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, -1)
 
 
-def _attend_sharded(core, q, k, v, n_kv: int):
+def _attend_sharded(core, q, k, v, n_kv: int, n_out: int = 1):
     """``core`` on DTensor q, k, v, each rank on its share: the rows of the
     batch where the mesh shards it, and the heads on the ``model`` axis
     where it divides the KV heads (GQA groups stay whole on a rank);
     otherwise the heads are gathered on that axis first (gpt2-xl's 25
     heads over 2).  The attention is independent across batch rows and
-    heads, so each rank computes its share exactly as one device would."""
+    heads, so each rank computes its share exactly as one device would.
+    ``core`` returns ``n_out`` tensors whose dimension 2 is the heads (flat
+    or not), all placed alike."""
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
     target = []
     for name, size, pl in zip(mesh.mesh_dim_names, mesh.shape, q.placements):
@@ -172,9 +173,8 @@ def _attend_sharded(core, q, k, v, n_kv: int):
             target.append(Replicate())
     target = tuple(target)
     q, k, v = (t.redistribute(mesh, target) for t in (q, k, v))
-    return local_map(core, out_placements=list(target),
-                     in_placements=(target, target, target),
-                     device_mesh=mesh)(q, k, v)
+    out_pl = list(target) if n_out == 1 else (list(target),) * n_out
+    return on_shards(core, out_pl, q, k, v)
 
 
 def attn_prefill(p, x: torch.Tensor, *, n_heads: int, n_kv: int,
@@ -182,19 +182,40 @@ def attn_prefill(p, x: torch.Tensor, *, n_heads: int, n_kv: int,
                  rope_fraction: float = 1.0, rope_theta: float = 10_000.0
                  ) -> Tuple[torch.Tensor, KVCache]:
     """Causal attention over the prompt, emitting a KV cache of cache_len
-    (>= S; right-padded with zeros)."""
-    B, S = x.shape[:2]
-    q, k, v = _project_qkv(p, x, x, n_heads, n_kv, head_dim)
+    (>= S; right-padded with zeros).  On DTensors each rank attends over
+    its batch rows and heads (:func:`_attend_sharded`) and returns its
+    share of the cache, placed as the heads are; the step places the cache
+    where the decode step takes it."""
+    q, k, v = _project_flat(p, x, x)
+    core = functools.partial(_prefill_core, head_dim=head_dim,
+                             cache_len=cache_len, window=window,
+                             rope_fraction=rope_fraction,
+                             rope_theta=rope_theta)
+    if is_dtensor(q):
+        out, ck, cv = _attend_sharded(core, q, k, v, n_kv, n_out=3)
+    else:
+        out, ck, cv = core(q, k, v)
+    return dense({"w": p["wo"]["w"]}, out), KVCache(k=ck, v=cv)
+
+
+def _prefill_core(q, k, v, *, head_dim: int, cache_len: int,
+                  window: Optional[int], rope_fraction: float,
+                  rope_theta: float):
+    """Flat q, k, v (B, S, heads·hd) of any share of the heads -> the
+    attention output (B, S, heads·hd) and the KV cache (B, cache_len,
+    kv heads, hd)."""
+    B, S = q.shape[:2]
+    q = q.reshape(B, S, -1, head_dim)
+    k = k.reshape(B, S, -1, head_dim)
+    v = v.reshape(B, S, -1, head_dim)
     if rope_fraction > 0:
-        pos = torch.arange(S, device=x.device)[None]
+        pos = torch.arange(S, device=q.device)[None]
         q = apply_rope(q, pos, rope_fraction, rope_theta)
         k = apply_rope(k, pos, rope_fraction, rope_theta)
-    mask = make_mask(S, S, True, window, device=x.device)
+    mask = make_mask(S, S, True, window, device=q.device)
     out = sdpa(q, k, v, mask)
     pad = (0, 0, 0, 0, 0, cache_len - S)     # the sequence axis, at the end
-    cache = KVCache(k=F.pad(k, pad), v=F.pad(v, pad))
-    return (dense({"w": p["wo"]["w"]}, out.reshape(B, S, n_heads * head_dim)),
-            cache)
+    return out.reshape(B, S, -1), F.pad(k, pad), F.pad(v, pad)
 
 
 def attn_decode(p, x: torch.Tensor, cache: KVCache, pos: torch.Tensor, *,
@@ -205,24 +226,96 @@ def attn_decode(p, x: torch.Tensor, cache: KVCache, pos: torch.Tensor, *,
     """One-token decode.  x: (B, 1, d); ``pos`` a 0-d int32 tensor on the
     cache's device — the index of this token; the cache holds positions
     [0, pos).  The mask and the write position come from ``pos`` on the
-    device, so a step reads nothing back to the host."""
+    device, so a step reads nothing back to the host.  On DTensors see
+    :func:`_decode_sharded`."""
+    if is_dtensor(x):
+        return _decode_sharded(p, x, cache, pos, head_dim=head_dim,
+                               window=window, rope_fraction=rope_fraction,
+                               rope_theta=rope_theta)
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, x, n_heads, n_kv, head_dim)
     if rope_fraction > 0:
         pvec = pos.reshape(1, 1)
         q = apply_rope(q, pvec, rope_fraction, rope_theta)
         k = apply_rope(k, pvec, rope_fraction, rope_theta)
-    at = pos.reshape(1).to(torch.int64)
-    new_k = cache.k.index_copy(1, at, k.to(cache.k.dtype))
-    new_v = cache.v.index_copy(1, at, v.to(cache.v.dtype))
-    kpos = torch.arange(new_k.shape[1], device=x.device)
-    valid = kpos <= pos
-    if window is not None:
-        valid &= kpos > pos - window
-    mask = valid[None, None, None, :]      # (1,1,1,S_max)
+    new_k = _write(cache.k, k, pos)
+    new_v = _write(cache.v, v, pos)
+    mask = _decode_mask(new_k.shape[1], pos, window)
     out = sdpa(q, new_k.to(q.dtype), new_v.to(q.dtype), mask)
     y = dense({"w": p["wo"]["w"]}, out.reshape(B, 1, n_heads * head_dim))
     return y, KVCache(k=new_k, v=new_v)
+
+
+def _write(cache: torch.Tensor, t: torch.Tensor,
+           pos: torch.Tensor) -> torch.Tensor:
+    """A new cache: ``cache`` with ``t`` (B, 1, H, hd) at sequence ``pos``."""
+    return cache.index_copy(1, pos.reshape(1).to(torch.int64),
+                            t.to(cache.dtype))
+
+
+def _decode_mask(s_max: int, pos: torch.Tensor,
+                 window: Optional[int]) -> torch.Tensor:
+    """(1, 1, 1, S_max): the cache slots a token at ``pos`` attends to."""
+    kpos = torch.arange(s_max, device=pos.device)
+    valid = kpos <= pos
+    if window is not None:
+        valid &= kpos > pos - window
+    return valid[None, None, None, :]
+
+
+def _decode_sharded(p, x, cache: KVCache, pos, *, head_dim: int,
+                    window: Optional[int], rope_fraction: float,
+                    rope_theta: float) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode on DTensors, as GSPMD runs the JAX package's under
+    its three ``constrain`` calls: q and the new cache sharded over batch
+    and head_dim.  The new token's k, v are written into each rank's shard
+    of the cache (the sequence is never sharded, so the write is local);
+    the score contraction over the rank's slice of head_dim gives partial
+    scores, summed over the axes that shard head_dim; the values mix on
+    each rank's slice, and only the (B, 1, H, hd) output is gathered.  The
+    cache is never gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    rows = tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                 for pl in x.placements)
+    q, k, v = (t.redistribute(mesh, rows) for t in _project_flat(p, x, x))
+
+    def heads(q, k, v, pos):
+        q, k, v = (t.reshape(t.shape[0], 1, -1, head_dim) for t in (q, k, v))
+        if rope_fraction > 0:
+            pvec = pos.reshape(1, 1)
+            q = apply_rope(q, pvec, rope_fraction, rope_theta)
+            k = apply_rope(k, pvec, rope_fraction, rope_theta)
+        return q, k, v
+    q, k, v = on_shards(heads, (rows,) * 3, q, k, v, pos)
+    c_pl = cache.k.placements
+    new_k = on_shards(_write, c_pl, cache.k, k.redistribute(mesh, c_pl), pos)
+    new_v = on_shards(_write, c_pl, cache.v, v.redistribute(mesh, c_pl), pos)
+    spec = ("batch", None, None, "model")
+    q, new_k, new_v = (constrain(t, spec) for t in (q, new_k, new_v))
+    kv_pl = tuple(new_k.placements)
+    q = q.redistribute(mesh, kv_pl)
+    scale = 1.0 / math.sqrt(head_dim)
+
+    def scores(q, k):
+        qg = q.reshape(q.shape[0], 1, k.shape[2], -1, q.shape[-1])
+        return torch.einsum("bqkgd,bskd->bkgqs", qg,
+                            k.to(q.dtype)).to(torch.float32) * scale
+    by_hd = [isinstance(pl, Shard) and pl.dim == 3 for pl in kv_pl]
+    s = on_shards(scores, [Partial() if h else pl
+                           for h, pl in zip(by_hd, kv_pl)], q, new_k)
+    s = s.redistribute(mesh, [Replicate() if h else pl
+                              for h, pl in zip(by_hd, kv_pl)])
+
+    def mix(s, v, pos):
+        m = _decode_mask(v.shape[1], pos, window).unsqueeze(2)
+        s = torch.where(m, s, s.new_full((), NEG_INF))
+        probs = torch.softmax(s, dim=-1).to(v.dtype)
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+        return out.reshape(out.shape[0], 1, -1, out.shape[-1])
+    out = on_shards(mix, kv_pl, s, new_v, pos).redistribute(mesh, rows)
+    out = on_shards(lambda o: o.reshape(o.shape[0], 1, -1), rows, out)
+    return dense({"w": p["wo"]["w"]}, out), KVCache(k=new_k, v=new_v)
 
 
 def attn_flops(tokens: int, kv_tokens: int, d: int, n_heads: int, n_kv: int,

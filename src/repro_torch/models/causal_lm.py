@@ -26,7 +26,8 @@ Entry points:
   ``decode_step``   one token against a cache
   ``count_params``  analytic parameter count
 
-``prefill`` and ``decode_step`` run under ``torch.inference_mode``.  The
+``prefill`` and ``decode_step`` run under ``torch.inference_mode`` (under
+``torch.no_grad`` on DTensors).  The
 cache's ``pos`` is a 0-d int32 tensor on the cache's device, as in JAX, so
 a decode step reads nothing back to the host.  The serving stages
 (:mod:`repro_torch.serving.stages`) run the same per-segment loops
@@ -41,9 +42,10 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelCfg
-from repro_torch.core.opgraph import split_generator
+from repro_torch.core.opgraph import split_generator, tree_leaves
 from repro_torch.core.rad import tree_map
-from repro_torch.distributed.sharding import constrain, replicate_like
+from repro_torch.distributed.sharding import (constrain, is_dtensor,
+                                              replicate_like)
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
@@ -315,6 +317,10 @@ def _dense_block_decode(cfg, p, x, kvc, pos, window):
 
 
 def _moe_ffn(cfg, p, h):
+    if is_dtensor(h) and cfg.moe_impl != "capacity":
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl={cfg.moe_impl!r} on a process mesh; only "
+            f"the capacity dispatch is sharded (ragged: ROADMAP Q1.6c)")
     return moe_mod.moe_apply(p["moe"], h, cfg.top_k, cfg.moe_impl,
                              cfg.capacity_factor)
 
@@ -464,7 +470,7 @@ def _run_prefill(cfg, kind, p_seg, x, window, cache_len):
             return _mlstm_block_prefill(cfg, pl, h)
         else:
             return _mamba_block_prefill(cfg, pl, h)
-        return h2, {"k": kvc.k, "v": kvc.v}
+        return _constrain_rows(h2), {"k": kvc.k, "v": kvc.v}
     return scan(body, x, p_seg)
 
 
@@ -606,6 +612,11 @@ def _constrain_act(h):
     return constrain(h, ("batch", "act_seq", None))
 
 
+def _constrain_rows(h):
+    """The serving paths' constraint: activations sharded over batch."""
+    return constrain(h, ("batch", None, None))
+
+
 def _constrain_aux(h_aux):
     return _constrain_act(h_aux[0]), h_aux[1]
 
@@ -642,7 +653,19 @@ def train_loss(cfg: ModelCfg, params, batch: Dict[str, torch.Tensor]
 
 
 # =============================================================== prefill ==
-@torch.inference_mode()
+def _serving(fn):
+    """``fn`` under ``torch.inference_mode``, or under ``torch.no_grad`` when
+    the parameters are DTensors: DTensor's views set a version counter,
+    which inference tensors do not have."""
+    @functools.wraps(fn)
+    def wrapped(cfg, params, *args, **kwargs):
+        sharded = is_dtensor(next(iter(tree_leaves(params)), None))
+        with torch.no_grad() if sharded else torch.inference_mode():
+            return fn(cfg, params, *args, **kwargs)
+    return wrapped
+
+
+@_serving
 def prefill(cfg: ModelCfg, params, tokens: torch.Tensor,
             cache_len: Optional[int] = None,
             prefix_embeds: Optional[torch.Tensor] = None,
@@ -650,11 +673,11 @@ def prefill(cfg: ModelCfg, params, tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Forward over the prompt, returning (last-position logits, cache)."""
     window = window if window is not None else cfg.window
-    x = _embed_tokens(cfg, params, tokens, prefix_embeds)
+    x = _constrain_rows(_embed_tokens(cfg, params, tokens, prefix_embeds))
     S = x.shape[1]
     cache_len = cache_len or S
-    cache: Dict[str, Any] = {
-        "pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
+    cache: Dict[str, Any] = {"pos": replicate_like(
+        torch.tensor(S, dtype=torch.int32, device=x.device), x)}
     for seg in segments(cfg):
         p_seg = params[seg.name]
         if seg.kind == "xlstm_group":
@@ -663,6 +686,7 @@ def prefill(cfg: ModelCfg, params, tokens: torch.Tensor,
                 x, st = _run_prefill(cfg, "mlstm", pl_g["m"], x, window,
                                      cache_len)
                 x, s_st = _slstm_block_prefill(cfg, pl_g["s"], x)
+                x = _constrain_rows(x)
                 msts += st
                 ssts.append(s_st)
             cache[seg.name] = {"m": _stack(msts, (seg.count, seg.inner - 1)),
@@ -678,6 +702,7 @@ def prefill(cfg: ModelCfg, params, tokens: torch.Tensor,
             x, st = _run_prefill(cfg, "mamba", pl_g, x, window, cache_len)
             x, kv = _shared_attn_prefill(cfg, shared[g % len(shared)], x,
                                          window, cache_len)
+            x = _constrain_rows(x)
             sts += st
             kvs.append(kv)
         cache[seg.name] = _stack(sts, (seg.count, seg.inner))
@@ -687,7 +712,7 @@ def prefill(cfg: ModelCfg, params, tokens: torch.Tensor,
 
 
 # ================================================================ decode ==
-@torch.inference_mode()
+@_serving
 def decode_step(cfg: ModelCfg, params, cache: Dict[str, Any],
                 tokens: torch.Tensor, window: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -695,7 +720,7 @@ def decode_step(cfg: ModelCfg, params, cache: Dict[str, Any],
     or :func:`prefill` (not modified).  Returns (logits (B,1,V), cache)."""
     window = window if window is not None else cfg.window
     pos = cache["pos"]
-    x = _embed_step(cfg, params, tokens, pos)
+    x = _constrain_rows(_embed_step(cfg, params, tokens, pos))
     new_cache: Dict[str, Any] = {"pos": pos + 1}
     for seg in segments(cfg):
         p_seg, c_seg = params[seg.name], cache[seg.name]

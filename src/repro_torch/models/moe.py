@@ -36,6 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
+from repro_torch.distributed.sharding import (constrain, is_dtensor,
+                                              local_offset, logical_to_spec,
+                                              on_shards)
 from .layers import _normal, dense_init
 
 
@@ -151,6 +154,33 @@ def moe_ragged(p, x: torch.Tensor, top_k: int) -> MoEOut:
     return MoEOut(y.reshape(B, S, d), aux)
 
 
+class CapacityPlan(NamedTuple):
+    """Where each (token, choice) goes, in expert-sorted order: its
+    expert, its slot within the expert (``C``, a spare slot, when it is
+    dropped), whether it is kept, and the (token, choice) order."""
+    order: torch.Tensor       # (T*K,) flat (token, choice) index, sorted
+    token_of: torch.Tensor    # (T*K,) token of each sorted entry
+    sorted_e: torch.Tensor    # (T*K,) expert of each sorted entry
+    pos_c: torch.Tensor       # (T*K,) slot, 0 where dropped
+    slot: torch.Tensor        # (T*K,) slot, C where dropped
+    keep: torch.Tensor        # (T*K,) bool
+
+
+def capacity_plan(idx: torch.Tensor, top_k: int, E: int,
+                  C: int) -> CapacityPlan:
+    """The static-capacity dispatch of routing ``idx`` (T, K): the position
+    of each (token, choice) within its expert comes from a stable sort over
+    all T tokens; entries with position >= C are dropped."""
+    flat_e, order, token_of = _sort_by_expert(idx, top_k)
+    sorted_e = flat_e[order]
+    counts = torch.bincount(flat_e, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(idx.numel(), device=idx.device) - starts[sorted_e]
+    keep = pos < C
+    return CapacityPlan(order, token_of, sorted_e, torch.where(keep, pos, 0),
+                        torch.where(keep, pos, C), keep)
+
+
 def moe_capacity(p, x: torch.Tensor, top_k: int,
                  capacity_factor: float = 1.25,
                  capacity: Optional[int] = None) -> MoEOut:
@@ -160,26 +190,21 @@ def moe_capacity(p, x: torch.Tensor, top_k: int,
     comes from a stable sort; entries with position >= C are dropped (their
     gate mass is simply lost, as in Switch/GShard).  Dropped entries are
     written to a spare slot C that is sliced off, so every kept slot is
-    written exactly once.
+    written exactly once.  On DTensors see :func:`_capacity_sharded`.
     """
     B, S, d = x.shape
     T = B * S
-    x2 = x.reshape(T, d)
-    gates, idx, aux = route(p["router"], x2, top_k)
     E = p["gate"].shape[0]
     C = capacity if capacity is not None else max(
         1, int(math.ceil(T * top_k / E * capacity_factor)))
-
-    flat_e, order, token_of = _sort_by_expert(idx, top_k)
-    sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(T * top_k, device=x.device) - starts[sorted_e]
-    keep = pos < C
-    pos_c = torch.where(keep, pos, 0)
+    if is_dtensor(x):
+        return _capacity_sharded(p, x, top_k, C)
+    x2 = x.reshape(T, d)
+    gates, idx, aux = route(p["router"], x2, top_k)
+    plan = capacity_plan(idx, top_k, E, C)
 
     buf = x2.new_zeros((E, C + 1, d))
-    buf[sorted_e, torch.where(keep, pos, C)] = x2[token_of]
+    buf[plan.sorted_e, plan.slot] = x2[plan.token_of]
     buf = buf[:, :C]
 
     h = torch.einsum("ecd,edf->ecf", buf, p["gate"].to(x.dtype))
@@ -187,12 +212,137 @@ def moe_capacity(p, x: torch.Tensor, top_k: int,
     out = torch.einsum("ecf,efd->ecd", h, p["down"].to(x.dtype))
 
     # combine: gather each kept (token, choice)'s result, weight by gate
-    gflat = gates.reshape(-1)[order]
-    got = out[sorted_e, pos_c] * torch.where(keep, gflat,
-                                             gflat.new_zeros(()))[:, None]
-    y = _combine(got, order, T, top_k)
+    gflat = gates.reshape(-1)[plan.order]
+    got = out[plan.sorted_e, plan.pos_c] * torch.where(
+        plan.keep, gflat, gflat.new_zeros(()))[:, None]
+    y = _combine(got, plan.order, T, top_k)
     y = y + _shared(p, x2)
     return MoEOut(y.reshape(B, S, d), aux)
+
+
+def _capacity_sharded(p, x, top_k: int, C: int) -> MoEOut:
+    """Static-capacity dispatch on DTensors, as GSPMD runs the JAX
+    package's under its two ``constrain(..., ("expert_dispatch", None,
+    None))`` calls.
+
+    The routing is tiny and runs whole on every rank, on the gathered
+    tokens: each (token, choice)'s position within its expert counts over
+    all T tokens of the global batch, so the same entries are dropped on
+    any mesh, and the router's aux loss averages over all T.  The expert
+    FFN then runs on local shards, each mesh axis in one of four modes:
+
+    * ``E`` — the axis shards the experts (the ``expert_dispatch`` rule
+      names it, as the ``ep`` set does, or the weights are placed so):
+      each rank builds the buffers of its own experts and computes only
+      those; the combine's partial sums meet in a reduction;
+    * ``d`` — the weights' model dimension is sharded (the baseline's
+      FSDP rule puts it on ``data``): the contraction is split, the
+      (E, C, ff) pre-activations are summed over the axis, and the output
+      columns stay split;
+    * ``f`` — the expert FFN width is sharded (``model`` in the baseline):
+      each rank computes its slice of the width, and the output is a
+      partial sum;
+    * ``R`` — replicated: every rank computes the same.
+
+    Every index write and gather runs on local tensors."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    B, S, d = x.shape
+    T = B * S
+    E = p["gate"].shape[0]
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    xr = x.redistribute(mesh, rep)
+    w = p["router"]["w"].redistribute(mesh, rep)
+
+    def routing(x, w):
+        gates, idx, aux = route({"w": w}, x.reshape(T, d), top_k)
+        return (gates, aux) + tuple(capacity_plan(idx, top_k, E, C))
+    gates, aux, *plan = on_shards(routing, (rep,) * 8, xr, w)
+    plan = CapacityPlan(*plan)
+
+    modes = _ffn_modes(mesh, p["gate"].placements)
+    R, P = Replicate(), Partial()
+    S0, S1, S2 = Shard(0), Shard(1), Shard(2)
+
+    def pl(**by_mode):
+        return tuple(by_mode[m] for m in modes)
+
+    buf_pl = pl(E=S0, d=R, f=R, R=R)
+    e0, n_e = local_offset((E, C, d), mesh, buf_pl, 0)
+
+    def dispatch(x, sorted_e, slot, token_of):
+        le = sorted_e - e0
+        mine = (le >= 0) & (le < n_e)
+        buf = x.new_zeros((n_e, C + 1, d))
+        buf[torch.where(mine, le, 0), torch.where(mine, slot, C)] = \
+            x.reshape(T, d)[token_of]
+        return buf[:, :C]
+    buf = on_shards(dispatch, buf_pl, xr, plan.sorted_e, plan.slot,
+                    plan.token_of,
+                    in_grad_placements=(pl(E=P, d=R, f=R, R=R), None, None,
+                                        None))
+    buf = constrain(buf, ("expert_dispatch", None, None))
+
+    buf = buf.redistribute(mesh, pl(E=S0, d=S2, f=R, R=R))
+    w_in = pl(E=S0, d=S1, f=S2, R=R)
+    hu_pl = pl(E=S0, d=P, f=S2, R=R)
+    h, u = on_shards(
+        lambda b, g, up: (torch.einsum("ecd,edf->ecf", b, g.to(b.dtype)),
+                          torch.einsum("ecd,edf->ecf", b, up.to(b.dtype))),
+        (hu_pl, hu_pl), buf, p["gate"].redistribute(mesh, w_in),
+        p["up"].redistribute(mesh, w_in),
+        in_grad_placements=(pl(E=S0, d=S2, f=P, R=R), None, None))
+    act_pl = pl(E=S0, d=R, f=S2, R=R)
+    h, u = h.redistribute(mesh, act_pl), u.redistribute(mesh, act_pl)
+    hu_grad = pl(E=S0, d=P, f=S2, R=R)
+    out = on_shards(
+        lambda h, u, w: torch.einsum("ecf,efd->ecd", F.silu(h) * u,
+                                     w.to(h.dtype)),
+        pl(E=S0, d=S2, f=P, R=R), h, u,
+        p["down"].redistribute(mesh, pl(E=S0, d=S2, f=S1, R=R)),
+        in_grad_placements=(hu_grad, hu_grad, None))
+    out = constrain(out, ("expert_dispatch", None, None))
+
+    o_pl = tuple(out.placements)
+    e0, n_e = local_offset((E, C, d), mesh, o_pl, 0)
+
+    def combine(out, gates, sorted_e, pos_c, keep, order):
+        le = sorted_e - e0
+        mine = (le >= 0) & (le < n_e)
+        gflat = gates.reshape(-1)[order]
+        got = out[torch.where(mine, le, 0), pos_c] * torch.where(
+            keep & mine, gflat, gflat.new_zeros(()))[:, None]
+        return _combine(got, order, T, top_k).reshape(B, S, -1)
+    # the output's experts (dim 0) and partial sums give partial sums of y;
+    # its columns (dim 2) are y's columns
+    y_pl = [q if q == S2 or q == R else P for q in o_pl]
+    y = on_shards(combine, y_pl, out, gates, plan.sorted_e, plan.pos_c,
+                  plan.keep, plan.order,
+                  in_grad_placements=(
+                      [R if isinstance(q, Partial) else q for q in o_pl],
+                      [R if isinstance(q, Replicate) else P for q in o_pl],
+                      None, None, None, None))
+    y = y.redistribute(mesh, x.placements)
+    return MoEOut(y + _shared(p, x), aux)
+
+
+def _ffn_modes(mesh, gate_placements) -> Tuple[str, ...]:
+    """Each mesh axis's mode of the sharded expert FFN (see
+    :func:`_capacity_sharded`): ``E`` where the ``expert_dispatch`` rule
+    names the axis, else what the (E, d, ff) gate weights' placement on
+    it shards."""
+    from torch.distributed.tensor import Shard
+    ed = logical_to_spec(("expert_dispatch",))[0]
+    ed = (ed,) if isinstance(ed, str) else tuple(ed or ())
+    modes = []
+    for name, pl in zip(mesh.mesh_dim_names, gate_placements):
+        if name in ed:
+            modes.append("E")
+        elif isinstance(pl, Shard):
+            modes.append("Edf"[pl.dim])
+        else:
+            modes.append("R")
+    return tuple(modes)
 
 
 def _shared(p, x2: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,12 @@ JAX runs once, in a subprocess with 4 forced host devices, on a ``(2, 2)``
 ``("data", "model")`` mesh with Auto axes (jax 0.9's ``jax.make_mesh``
 makes Explicit ones, on which the step fails at the embedding gather:
 ROADMAP Queue 3): 2 Adafactor steps of ``build_jitted``'s step for
-gpt2-xl and llama3-8b at smoke size (batch 4 × 16, ``PRNGKey(0)``), under
-``use_mesh``; it saves the weights, the batches, the losses,
-``grad_norm`` and every leaf's ``addressable_shards`` (mesh position,
-index, values), and ``devices_indices_map`` for every placement case.
+gpt2-xl, llama3-8b and internvl2-2b (the vlm: 8 patch embeddings
+projected ahead of 8 text tokens) at smoke size (batch 4 × 16,
+``PRNGKey(0)``), under ``use_mesh``; it saves the weights, the batches,
+the losses, ``grad_norm`` and every leaf's ``addressable_shards`` (mesh
+position, index, values), and ``devices_indices_map`` for every
+placement case.
 The port's 4 ranks (``launch.spmd``, the host-staged group, one spawn for
 the module: ``torch_spmd_ranks.run_ranks``) load the same weights and take
 the same steps.
@@ -35,7 +37,8 @@ from repro_torch.launch import spmd  # noqa: E402
 import torch_spmd_ranks as ranks  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ("gpt2-xl", "llama3-8b")
+ARCHS = ("gpt2-xl", "llama3-8b", "internvl2-2b")
+BATCH_KEYS = ("tokens", "labels", "prefix_embeds")
 STEPS, BATCH = 2, 4
 STEP_RTOL = 1e-4
 SHARD_ATOL = 1e-6
@@ -110,8 +113,11 @@ SCRIPT = textwrap.dedent("""
         state = adafactor(1e-3).init(params)
         rng = np.random.default_rng(1)
         for i in range(STEPS):
-            batch = {{k: rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-                     for k in ("tokens", "labels")}}
+            batch = {{k: rng.integers(0, cfg.vocab, (B, S - cfg.n_prefix))
+                     .astype(np.int32) for k in ("tokens", "labels")}}
+            if cfg.n_prefix:
+                batch["prefix_embeds"] = rng.standard_normal(
+                    (B, cfg.n_prefix, cfg.d_frontend)).astype(np.float32)
             for k, v in batch.items():
                 out[f"{{arch}}/batch{{i}}/{{k}}"] = v
             with use_mesh(mesh):
@@ -151,7 +157,8 @@ def jax_run(tmp_path_factory):
 def port_run(jax_run, tmp_path_factory):
     runs = {arch: {"params": _tree(jax_run, f"{arch}/weights/"),
                    "batches": [{k: jax_run[f"{arch}/batch{i}/{k}"]
-                                for k in ("tokens", "labels")}
+                                for k in BATCH_KEYS
+                                if f"{arch}/batch{i}/{k}" in jax_run.files}
                                for i in range(STEPS)]}
             for arch in ARCHS}
     rdv = str(tmp_path_factory.mktemp("spmd_rdv"))

@@ -16,6 +16,13 @@ without JAX, so the spawned ranks import only the port).
   rank 0 also runs the port's unsharded step on the whole weights and
   returns its losses and the gathered parameters;
 * one AdamW step of gpt2-smoke sharded against the unsharded step.
+
+``run_moe_ranks`` (``tests/test_torch_spmd_moe.py``) takes the MoE
+family's train step on the same mesh, under each override set's rules and
+parameter overrides, counting the (token, choice) entries the capacity
+dispatch drops; ``run_serve_ranks`` (``tests/test_torch_spmd_serve.py``)
+the sharded prefill and decode steps.  Both check that the families and
+dispatch the process mesh does not run yet raise.
 """
 from __future__ import annotations
 
@@ -28,6 +35,79 @@ RULES = ("generic_spec", "row_spec")
 SHAPES = ((8,), (6,), (8, 12), (4, 8, 12), (2, 6, 5), (1, 4))
 BATCHES = (4, 2, 1)
 SEQ = 16
+# the MoE train step: case -> (arch, override set)
+MOE_CASES = {"mixtral-default": ("mixtral-8x7b", None),
+             "mixtral-ep": ("mixtral-8x7b", "ep"),
+             "mixtral-moe_w": ("mixtral-8x7b", "moe_w"),
+             "deepseek-default": ("deepseek-moe-16b", None)}
+MOE_STEPS = 2
+# the serving steps: a prompt of PROMPT tokens into CACHE_LEN slots, then
+# DECODE_STEPS steps of given tokens
+SERVE_ARCHS = ("gpt2-xl", "llama3-8b", "internvl2-2b", "mixtral-8x7b")
+PROMPT, CACHE_LEN, DECODE_STEPS = 16, 32, 4
+# what the process mesh does not run yet: (arch, moe_impl or None)
+REFUSED = (("mixtral-8x7b", "ragged"), ("zamba2-7b", None),
+           ("xlstm-1_3b", None), ("seamless-m4t-large-v2", None))
+
+
+# the JAX side's helpers, for the subprocess scripts of the test files: a
+# tree from an npz's "prefix/a/b" keys, and every addressable shard of a
+# tree's leaves saved by mesh position with its index
+JAX_HELPERS = """
+def tree(prefix):
+    t = {}
+    for key in z.files:
+        if key.startswith(prefix):
+            *parts, last = key[len(prefix):].split("/")
+            node = t
+            for p in parts:
+                node = node.setdefault(p, {})
+            node[last] = jax.numpy.asarray(z[key])
+    return t
+
+def pstr(path):
+    return "/".join(str(getattr(p, "key", getattr(p, "name",
+                                                 getattr(p, "idx", p))))
+                    for p in path)
+
+def index(idx, shape):
+    return np.array([[s.start or 0, d if s.stop is None else s.stop]
+                     for s, d in zip(idx, shape)],
+                    dtype=np.int64).reshape(-1, 2)
+
+def shards(prefix, tree):
+    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+        key = prefix + pstr(path)
+        for s in leaf.addressable_shards:
+            i = pos[s.device.id]
+            out[f"{key}@{i}"] = np.asarray(s.data)
+            out[f"{key}@{i}#index"] = index(s.index, leaf.shape)
+"""
+
+
+def flat_arrays(tree, prefix, out) -> None:
+    """A nested dict of arrays into ``out`` under "prefix/a/b" keys."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat_arrays(v, f"{prefix}{k}/", out)
+        else:
+            out[f"{prefix}{k}"] = v
+
+
+def index_rows(offset, local_shape):
+    """A shard's index as JAX's scripts save it: one [start, stop) row a
+    dimension."""
+    import numpy as np
+    return np.array([[o, o + n] for o, n in zip(offset, local_shape)],
+                    dtype=np.int64).reshape(-1, 2)
+
+
+def smoke_cfg(arch, moe_impl="capacity"):
+    """The arch's smoke config; the moe family with ``moe_impl`` (the
+    capacity dispatch by default, as at full size)."""
+    from repro_torch.configs import resolve
+    cfg = resolve(arch).smoke
+    return cfg.replace(moe_impl=moe_impl) if cfg.family == "moe" else cfg
 
 
 def cases():
@@ -129,9 +209,11 @@ def _train(dev, arch, run) -> dict:
     from repro_torch.optim import adafactor
 
     cfg = resolve(arch).smoke
-    batches = [{k: torch.as_tensor(v, dtype=torch.long, device=dev)
+    batches = [{k: torch.as_tensor(v, device=dev, dtype=torch.long
+                                   if v.dtype.kind == "i" else None)
                 for k, v in b.items()} for b in run["batches"]]
     B, S = batches[0]["tokens"].shape
+    S += cfg.n_prefix
     mesh = make_process_mesh((2, 2), ("data", "model"), dev)
     fn, _, meta = build_jitted(cfg, mesh, InputShape("spmd", S, B, "train"))
     p_sh, o_sh, b_sh = meta["in_shardings"]
@@ -228,3 +310,154 @@ def fail_on_rank_1(rank, dev):
         raise ValueError("rank 1 stops here")
     torch.distributed.barrier()
     return rank
+
+
+def _refused(dev) -> dict:
+    """``build_jitted``'s error for each step kind of what the process
+    mesh does not run yet."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.steps import build_jitted
+    from repro_torch.launch.mesh import make_process_mesh
+
+    mesh = make_process_mesh((2, 2), ("data", "model"), dev)
+    out = {}
+    for arch, impl in REFUSED:
+        cfg = smoke_cfg(arch, impl) if impl else smoke_cfg(arch)
+        for kind in ("train", "prefill", "decode"):
+            try:
+                build_jitted(cfg, mesh, InputShape(kind, SEQ, 4, kind))
+                out[(arch, kind)] = "built"
+            except NotImplementedError as e:
+                out[(arch, kind)] = f"NotImplementedError: {e}"
+    return out
+
+
+def _moe_train(dev, arch, set_name, run) -> dict:
+    from repro_torch.checkpoint import from_numpy_tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.params import shard_tree
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.distributed.steps import build_jitted, make_train_step
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import moe
+    from repro_torch.optim import adafactor
+    from repro_torch.perf import overrides
+
+    cfg = smoke_cfg(arch)
+    ov = overrides.get(set_name) or {}
+    batches = [{k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                for k, v in b.items()} for b in run["batches"]]
+    B, S = batches[0]["tokens"].shape
+    mesh = make_process_mesh((2, 2), ("data", "model"), dev)
+    fn, _, meta = build_jitted(cfg, mesh, InputShape("spmd", S, B, "train"),
+                               param_overrides=ov.get("param_overrides"))
+    p_sh, _, b_sh = meta["in_shardings"]
+    params = from_numpy_tree(run["params"], dev, p_sh)
+    opt = adafactor(1e-3)
+    state = opt.init(params)
+    out = {"losses": [], "grad_norms": [], "dropped": []}
+    plan = moe.capacity_plan
+    for b in batches:
+        dropped = []
+
+        def counted(*a, **kw):
+            got = plan(*a, **kw)
+            dropped.append(int((~got.keep).sum()))
+            return got
+        moe.capacity_plan = counted
+        try:
+            with use_mesh(mesh, ov.get("rules")):
+                params, state, m = fn(params, state, shard_tree(b, b_sh))
+        finally:
+            moe.capacity_plan = plan
+        out["dropped"].append(dropped)
+        out["losses"].append(float(m["loss"].full_tensor()))
+        out["grad_norms"].append(float(m["grad_norm"].full_tensor()))
+    out["shards"] = {**{"param/" + k: _local(v)
+                        for k, v in _leaves_by_path(params).items()},
+                     **{"opt/" + k: _local(v)
+                        for k, v in _leaves_by_path(state).items()}}
+    if torch.distributed.get_rank() == 0:
+        whole = from_numpy_tree(run["params"], dev)
+        st = opt.init(whole)
+        step = make_train_step(cfg, opt)
+        out["unsharded_losses"] = []
+        for b in batches:
+            whole, st, m = step(whole, st, b)
+            out["unsharded_losses"].append(float(m["loss"]))
+    return out
+
+
+def run_moe_ranks(rank, dev, runs) -> dict:
+    """``runs[arch]``: the weights and batches; every case of MOE_CASES."""
+    from repro_torch.launch import spmd
+    spmd.reset_staged_counts()
+    out = {"train": {case: _moe_train(dev, arch, set_name, runs[arch])
+                     for case, (arch, set_name) in MOE_CASES.items()},
+           "refused": _refused(dev)}
+    out["staged"] = spmd.staged_counts()
+    return out
+
+
+def _serve(dev, arch, run) -> dict:
+    from repro_torch.checkpoint import from_numpy_tree, to_numpy_tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.params import shard_tree
+    from repro_torch.distributed.sharding import distribute, use_mesh
+    from repro_torch.distributed.steps import (build_jitted,
+                                               make_decode_step,
+                                               make_prefill_step)
+    from repro_torch.launch.mesh import make_process_mesh
+
+    cfg = smoke_cfg(arch)
+    B = run["prompt"].shape[0]
+    mesh = make_process_mesh((2, 2), ("data", "model"), dev)
+    pf, _, p_meta = build_jitted(cfg, mesh, InputShape(
+        "prefill", CACHE_LEN, B, "prefill"))
+    df, _, d_meta = build_jitted(cfg, mesh, InputShape(
+        "decode", CACHE_LEN, B, "decode"))
+    p_sh, b_sh = p_meta["in_shardings"]
+    _, c_sh, t_sh = d_meta["in_shardings"]
+    params = from_numpy_tree(run["params"], dev, p_sh)
+    prompt = {"tokens": torch.as_tensor(run["prompt"], dtype=torch.long,
+                                        device=dev)}
+    if "prefix" in run:
+        prompt["prefix_embeds"] = torch.as_tensor(run["prefix"], device=dev)
+    tokens = [torch.as_tensor(t, dtype=torch.long, device=dev)
+              for t in run["tokens"]]
+    with use_mesh(mesh):
+        logits, cache = pf(params, shard_tree(prompt, b_sh))
+    out = {"logits": [logits.full_tensor().numpy()],
+           "prefill_cache": {k: _local(v)
+                             for k, v in _leaves_by_path(cache).items()},
+           "placements": {k: [str(p) for p in v.placements]
+                          for k, v in _leaves_by_path(cache).items()},
+           "placements_want": {k: [str(p) for p in v.placements]
+                               for k, v in _leaves_by_path(
+                                   p_meta["cache_sh"]).items()}}
+    for t in tokens:
+        with use_mesh(mesh):
+            logits, cache = df(params, cache, distribute(t, t_sh))
+        out["logits"].append(logits.full_tensor().numpy())
+    out["cache"] = {k: _local(v) for k, v in _leaves_by_path(cache).items()}
+    out["decode_placements"] = {k: [str(p) for p in v.placements]
+                                for k, v in _leaves_by_path(cache).items()}
+    if torch.distributed.get_rank() == 0:
+        whole = from_numpy_tree(run["params"], dev)
+        logits, c = make_prefill_step(cfg, CACHE_LEN, cfg.window)(
+            whole, prompt)
+        step = make_decode_step(cfg, cfg.window)
+        out["unsharded_logits"] = [logits.numpy()]
+        out["unsharded_prefill_cache"] = to_numpy_tree(c)
+        for t in tokens:
+            logits, c = step(whole, c, t)
+            out["unsharded_logits"].append(logits.numpy())
+        out["unsharded_cache"] = to_numpy_tree(c)
+    return out
+
+
+def run_serve_ranks(rank, dev, runs) -> dict:
+    """``runs[arch]``: the weights, the prompt and the decode tokens."""
+    return {"serve": {arch: _serve(dev, arch, run)
+                      for arch, run in runs.items()},
+            "refused": _refused(dev)}
