@@ -135,7 +135,14 @@
    within rel 1e-5 of the unsharded step on the card, and every loss is
    finite; it prints each rank's peak memory, the median step seconds and
    tokens/s, and a steady step's collectives by kind (CommDebugMode's
-   count, the staged group's calls and bytes); no codec runs;
+   count, the staged group's calls and bytes); no codec runs; then, on
+   the same mesh, mixtral-8x7b at full width cut to 2 layers (2
+   Adafactor steps under the default rules, one under ``ep``) and
+   zamba2-7b at full width cut to 13 layers (2 Adafactor steps at 4 ×
+   256, two SSD chunks), each also served sharded (batch 4, a prompt into
+   a placed cache, 16 greedy steps), held to the same gates against the
+   unsharded steps on rank 0, with the served logits, tokens and every
+   cache shard; no codec runs;
 15. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
    versions at every (boundary shape, k a block) that the training,
    elastic and pipeline paths gave them, derived from each step's plan;
@@ -264,6 +271,28 @@ def bits_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def decode_mismatch(kernel, plain, values, bitmap, shape) -> str:
+    """Where a kernel decode and the card's plain decode of one wire
+    differ: the first differing index, its block, both values, and which
+    of the two equals a CPU ``decode_topk_ref`` of the same wire (an empty
+    string where they are bit-equal)."""
+    import torch
+    from repro_torch.kernels import ref
+    if bits_equal(kernel, plain):
+        return ""
+    cpu = ref.decode_topk_ref(values.cpu(), bitmap.cpu(), tuple(shape))
+    k_flat, p_flat = kernel.reshape(-1).cpu(), plain.reshape(-1).cpu()
+    as_int = (lambda t: t.to(torch.float32).view(torch.int32))
+    i = int((as_int(k_flat) != as_int(p_flat)).nonzero()[0])
+    block = bitmap.shape[1] * 32
+    sides = [name for name, t in (("kernel", k_flat), ("plain", p_flat))
+             if bits_equal(t, cpu.reshape(-1))]
+    return (f"first differing index {i} (block {i // block}, element "
+            f"{i % block}): kernel {float(k_flat[i])!r}, plain "
+            f"{float(p_flat[i])!r}, CPU {float(cpu.reshape(-1)[i])!r}; "
+            f"equal to the CPU's decode: {', '.join(sides) or 'neither'}")
+
+
 def check_kernels(dev):
     """Every case bit-exact; returns the max |kernel - plain| per kernel.
     The residual of the error-feedback kernels is drawn like x.  Inputs are
@@ -339,9 +368,12 @@ def check_kernels(dev):
                      "ef_topk": [(ds, dsr), (dr, drr)]}
             for name, outs in pairs.items():
                 if not all(bits_equal(a, b) for a, b in outs):
+                    where = decode_mismatch(d, dref, v, m, shape) \
+                        if name == "decode_topk" else ""
                     raise AssertionError(
                         f"{name} != plain version: {dtype} {shape} k={k} "
-                        f"block={block} {regime}")
+                        f"block={block} {regime}"
+                        + (f"; {where}" if where else ""))
                 err[name] = max([err[name]] + [diff(a, b) for a, b in outs
                                                 if a.is_floating_point()])
             n_cases += 1
@@ -3098,17 +3130,22 @@ def run_spmd_path(dev):
     return launches
 
 
-# ========================================== MoE sharded over processes ==
+# ===================================== a model sharded over processes ==
 SPMD_MOE_ARCH = "mixtral-8x7b"
 SPMD_MOE_LAYERS = 2         # of 32: the 4 ranks share one card's 80 GB
 SPMD_MOE_STEPS = 2          # Adafactor steps under the default rules
-SPMD_MOE_GAP = 1e-5         # step 1 against the unsharded step, rel
 SPMD_SERVE_BATCH = 4
 SPMD_PROMPT = 128
 SPMD_CACHE_LEN = 256
 SPMD_NEW = 16               # greedy decode steps
 SPMD_LOGIT_GAP = 1e-5       # served logits vs unsharded, rel to max |logit|
 SPMD_CACHE_GAP = 1e-5       # final cache shards vs unsharded slices, rel
+SPMD_HYBRID_ARCH = "zamba2-7b"
+SPMD_HYBRID_LAYERS = 13     # of 81: 2 groups of 6, both shared blocks, a tail
+SPMD_HYBRID_STEPS = 2       # Adafactor steps under the default rules
+SPMD_HYBRID_BATCH, SPMD_HYBRID_SEQ = 4, 256   # two SSD chunks of 128
+SPMD_HYBRID_PROMPT = 256
+SPMD_HYBRID_CACHE_LEN = 512
 
 
 def spmd_moe_cfg():
@@ -3122,6 +3159,14 @@ def spmd_moe_cfg():
     return cfg
 
 
+def spmd_hybrid_cfg():
+    """zamba2-7b at full width, cut to SPMD_HYBRID_LAYERS layers."""
+    from repro_torch.configs import resolve
+    cfg = resolve(SPMD_HYBRID_ARCH).full
+    return cfg.replace(n_layers=SPMD_HYBRID_LAYERS,
+                       name=f"{cfg.name}-l{SPMD_HYBRID_LAYERS}")
+
+
 def owned_shards(tree):
     """Each DTensor leaf on a copy of its local shard: a shard taken as a
     slice may be a view that keeps the whole tensor alive."""
@@ -3132,8 +3177,31 @@ def owned_shards(tree):
         shape=d.shape, stride=d.stride()), tree)
 
 
-def spmd_moe_rank(rank, dev):
-    """One rank of the spmd-moe phase (see :func:`run_spmd_moe_path`)."""
+def leaves_by_path(tree) -> dict:
+    """A tree's leaves by their '/'-joined key paths."""
+    from repro_torch.distributed.params import (tree_map_with_path,
+                                                tree_path_str)
+    out = {}
+    tree_map_with_path(lambda p, t: out.__setitem__(tree_path_str(p), t),
+                       tree)
+    return out
+
+
+def staged_bytes() -> int:
+    from repro_torch.launch import spmd
+    return sum(v for k, v in spmd.staged_counts().items()
+               if k.endswith("_bytes"))
+
+
+def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape):
+    """One rank of a phase that trains and serves ``cfg`` sharded over a
+    ``SPMD_MESH`` process mesh (see :func:`run_spmd_lm_path`).
+
+    ``train_shape`` is (batch, seq) of ``SyntheticLM`` batches;
+    ``rule_sets`` maps a label to (override set or ``None``, Adafactor
+    steps), each run from the same initial weights; ``serve_shape`` is
+    (batch, prompt, cache_len, greedy steps).  The unsharded reference
+    (step 1 and the served tokens) runs on rank 0 alone first."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor.debug import CommDebugMode
@@ -3151,24 +3219,26 @@ def spmd_moe_rank(rank, dev):
     from repro_torch.kernels import topk_compress as tk
     from repro_torch.launch import spmd
     from repro_torch.launch.mesh import make_process_mesh
-    from repro_torch.models import causal_lm
+    from repro_torch.models import causal_lm, ssm
     from repro_torch.optim import adafactor
     from repro_torch.perf import overrides
 
-    cfg = spmd_moe_cfg()
+    batch, seq = train_shape
+    serve_batch, prompt_len, cache_len, n_new = serve_shape
     mesh = make_process_mesh(*SPMD_MESH, dev)
     world = mesh.size
-    fn, args, meta = build_jitted(cfg, mesh, InputShape("spmd-moe", SEQ,
-                                                        BATCH, "train"))
+    fn, args, meta = build_jitted(cfg, mesh, InputShape("spmd-train", seq,
+                                                        batch, "train"))
     p_sh, o_sh, b_sh = meta["in_shardings"]
     opt = adafactor(1e-3)
-    ds = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0, order=1)
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0, order=1)
+    n_batches = max(n for _, n in rule_sets.values())
     batches = [{k: torch.as_tensor(v, dtype=torch.int32, device=dev)
-                for k, v in ds.batch(BATCH, i).items()}
-               for i in range(SPMD_MOE_STEPS)]
+                for k, v in ds.batch(batch, i).items()}
+               for i in range(n_batches)]
     prompt = torch.as_tensor(
-        SyntheticLM(vocab=cfg.vocab, seq_len=SPMD_PROMPT, seed=1, order=1)
-        .batch(SPMD_SERVE_BATCH, 0)["tokens"], dtype=torch.long, device=dev)
+        SyntheticLM(vocab=cfg.vocab, seq_len=prompt_len, seed=1, order=1)
+        .batch(serve_batch, 0)["tokens"], dtype=torch.long, device=dev)
 
     def whole_params():
         gen = torch.Generator(device=dev)
@@ -3199,18 +3269,19 @@ def spmd_moe_rank(rank, dev):
                         "step_s": time.perf_counter() - t0}
         ref_new = [t.cpu() for t in tree_leaves(new)]
         del new, m
-        logits, cache = make_prefill_step(cfg, SPMD_CACHE_LEN, cfg.window)(
+        logits, cache = make_prefill_step(cfg, cache_len, cfg.window)(
             whole, {"tokens": prompt})
         step = make_decode_step(cfg, cfg.window)
         ref_logits, ref_tokens = [real(logits)], []
-        for _ in range(SPMD_NEW):
+        for _ in range(n_new):
             tok = greedy(logits)
             ref_tokens.append(tok[:, 0].tolist())
             logits, cache = step(whole, cache, tok)
             ref_logits.append(real(logits))
         ref["serve"] = {"logits": ref_logits, "tokens": ref_tokens,
-                        "cache": {k: cache["blocks"][k].cpu().numpy()
-                                  for k in ("k", "v")},
+                        "cache": {k: v.cpu().numpy() for k, v in
+                                  leaves_by_path(cache).items()
+                                  if k != "pos"},
                         "pos": int(cache["pos"])}
         del whole, logits, cache
         ref["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -3269,7 +3340,19 @@ def spmd_moe_rank(rank, dev):
         dist.all_reduce(sums)
         return math.sqrt(float(sums[0]) / float(sums[1]))
 
-    def train(rules, n_steps):
+    # the staged bytes of the Mamba2 blocks' split of the sharded in_proj
+    # output (DTensor gathers the projection before it splits)
+    split_bytes = [0]
+    split_proj = ssm._split_proj
+
+    def counted_split(mcfg, zxbcdt):
+        before = staged_bytes()
+        out = split_proj(mcfg, zxbcdt)
+        split_bytes[0] += staged_bytes() - before
+        return out
+
+    def train(set_name, n_steps):
+        rules = overrides.get(set_name)["rules"] if set_name else None
         params = initial()
         state = opt.init(params)
         out = {"losses": [], "grad_norms": [], "step_s": [], "steps": []}
@@ -3277,6 +3360,7 @@ def spmd_moe_rank(rank, dev):
         torch.cuda.reset_peak_memory_stats(dev)
         for i in range(n_steps):
             spmd.reset_staged_counts()
+            split_bytes[0] = 0
             mode = CommDebugMode()
             dist.barrier()
             torch.cuda.synchronize(dev)
@@ -3288,7 +3372,8 @@ def spmd_moe_rank(rank, dev):
             out["losses"].append(float(m["loss"].full_tensor()))
             out["grad_norms"].append(float(m["grad_norm"].full_tensor()))
             out["steps"].append({"collectives": comm_counts(mode),
-                                 "staged": spmd.staged_counts()})
+                                 "staged": spmd.staged_counts(),
+                                 "split_proj_staged_bytes": split_bytes[0]})
             del m
             gc.collect()
             torch.cuda.empty_cache()
@@ -3304,16 +3389,20 @@ def spmd_moe_rank(rank, dev):
         return out
 
     del params
-    runs = {"default": train(None, SPMD_MOE_STEPS),
-            "ep": train(overrides.get("ep")["rules"], 1)}
+    ssm._split_proj = counted_split
+    try:
+        runs = {label: train(set_name, n)
+                for label, (set_name, n) in rule_sets.items()}
+    finally:
+        ssm._split_proj = split_proj
 
     # serving on the same weights: the sharded prefill into a cache placed
     # by cache_shardings of the decode shape, then greedy decode steps
     params = initial()
     pf, _, p_meta = build_jitted(cfg, mesh, InputShape(
-        "spmd-moe-prefill", SPMD_CACHE_LEN, SPMD_SERVE_BATCH, "prefill"))
+        "spmd-prefill", cache_len, serve_batch, "prefill"))
     df, _, d_meta = build_jitted(cfg, mesh, InputShape(
-        "spmd-moe-decode", SPMD_CACHE_LEN, SPMD_SERVE_BATCH, "decode"))
+        "spmd-decode", cache_len, serve_batch, "decode"))
     _, pb_sh = p_meta["in_shardings"]
     _, c_sh, t_sh = d_meta["in_shardings"]
     torch.cuda.synchronize(dev)
@@ -3329,11 +3418,12 @@ def spmd_moe_rank(rank, dev):
              "tokens": []}
     full = logits.full_tensor()
     got_logits = [real(full)]
-    cache_pl = {k: [str(p) for p in cache["blocks"][k].placements]
-                for k in ("k", "v")}
-    want_pl = {k: [str(p) for p in c_sh["blocks"][k].placements]
-               for k in ("k", "v")}
-    for i in range(SPMD_NEW):
+
+    def placements(tree):
+        return {k: [str(p) for p in v.placements]
+                for k, v in leaves_by_path(tree).items()}
+    cache_pl, want_pl = placements(cache), placements(c_sh)
+    for i in range(n_new):
         tok = greedy(full)
         serve["tokens"].append(tok[:, 0].tolist())
         spmd.reset_staged_counts()
@@ -3352,8 +3442,12 @@ def spmd_moe_rank(rank, dev):
         got_logits.append(real(full))
     launches = launch_counts()
     serve["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    serve["cache_placements"] = cache_pl
-    serve["cache_placements_want"] = want_pl
+    serve["cache_placements"] = {k: v for k, v in cache_pl.items()
+                                 if k != "pos"}
+    serve["cache_placements_want"] = {k: v for k, v in want_pl.items()
+                                      if k != "pos"}
+    serve["decode_placements"] = {k: v for k, v in placements(cache).items()
+                                  if k != "pos"}
     serve["pos"] = int(cache["pos"].full_tensor())
 
     def shard(d):
@@ -3363,8 +3457,8 @@ def spmd_moe_rank(rank, dev):
             d.shape, d.device_mesh, d.placements)
         return {"values": d.to_local().cpu().numpy(),
                 "offset": tuple(int(o) for o in offset)}
-    serve["cache_shards"] = {k: shard(cache["blocks"][k])
-                             for k in ("k", "v")}
+    serve["cache_shards"] = {k: shard(v) for k, v in
+                             leaves_by_path(cache).items() if k != "pos"}
     if rank == 0:
         serve["logits"] = got_logits
     del params, cache, logits, full
@@ -3378,26 +3472,37 @@ def spmd_moe_rank(rank, dev):
             "n_params": causal_lm.count_params(cfg), "cfg": cfg.name}
 
 
-def run_spmd_moe_path(dev):
-    """mixtral-8x7b at full width (d_model 4096, 8 experts top-2, the
-    capacity dispatch; seed 0, fp32), cut to SPMD_MOE_LAYERS of its 32
-    layers, on a ``(2, 2)`` ``("data", "model")`` process mesh: 4 ranks on
-    this card, joined by the host-staged gloo group.  Trains SPMD_MOE_STEPS
-    Adafactor steps of ``build_jitted``'s step on batches BATCH × SEQ of
-    ``SyntheticLM`` under the default rules, then step 1 again from the
-    same weights under the ``ep`` set; then serves on the same weights:
-    ``build_jitted``'s sharded prefill of a SPMD_PROMPT-token prompt at
-    batch SPMD_SERVE_BATCH into a SPMD_CACHE_LEN-slot cache, and SPMD_NEW
-    greedy steps of its decode step.  The unsharded reference runs on rank
-    0 before the sharded run.  Gates: each rank's argument bytes equal the
-    shardings' sum; step 1's loss, ``grad_norm`` and updated parameters
-    (one vector) within SPMD_MOE_GAP of the unsharded step under each rule
-    set; the served logits within SPMD_LOGIT_GAP of max |logit| at every
+def spmd_moe_rank(rank, dev):
+    """One rank of the spmd-moe phase (see :func:`run_spmd_moe_path`)."""
+    return spmd_lm_rank(
+        rank, dev, spmd_moe_cfg(), (BATCH, SEQ),
+        {"default": (None, SPMD_MOE_STEPS), "ep": ("ep", 1)},
+        (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW))
+
+
+def spmd_hybrid_rank(rank, dev):
+    """One rank of the spmd-hybrid phase (see :func:`run_spmd_hybrid_path`)."""
+    return spmd_lm_rank(
+        rank, dev, spmd_hybrid_cfg(), (SPMD_HYBRID_BATCH, SPMD_HYBRID_SEQ),
+        {"default": (None, SPMD_HYBRID_STEPS)},
+        (SPMD_SERVE_BATCH, SPMD_HYBRID_PROMPT, SPMD_HYBRID_CACHE_LEN,
+         SPMD_NEW))
+
+
+def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
+    """Runs ``rank_fn`` (a :func:`spmd_lm_rank`) on the 4 ranks of a ``(2,
+    2)`` ``("data", "model")`` process mesh, each on this card, joined by
+    the host-staged gloo group, and holds what they return to the gates
+    of PERF.md §2's sharded steps: each rank's argument bytes equal the
+    shardings' sum; under each rule set step 1's loss, ``grad_norm`` and
+    updated parameters (one vector) within SPMD_GAP of the unsharded
+    step; the served logits within SPMD_LOGIT_GAP of max |logit| at every
     step, the greedy tokens equal, every shard of the final cache equal to
     the unsharded cache's slice (rel SPMD_CACHE_GAP) and placed by
-    ``cache_shardings``.  Records step seconds, each rank's peak, a steady
-    step's collectives and staged bytes, prefill seconds and decode ms a
-    step.  Returns the ranks' summed launch counts (no codec: all 0)."""
+    ``cache_shardings`` after the prefill and after the last step.  Prints
+    the records (step seconds, each rank's peak, each step's collectives
+    and staged bytes, prefill seconds, decode ms a step) as
+    ``<label> path: {...}``.  Returns the ranks' summed launch counts."""
     import numpy as np
     import torch
     from repro_torch.launch import spmd
@@ -3405,7 +3510,7 @@ def run_spmd_moe_path(dev):
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info(dev)
-    print(f"spmd-moe: card free {free / 1e9:.2f} GB of {total / 1e9:.2f} GB "
+    print(f"{label}: card free {free / 1e9:.2f} GB of {total / 1e9:.2f} GB "
           f"before the ranks start")
     t0 = time.perf_counter()
     # the ranks' allocators grow by segments: four ranks' freed blocks
@@ -3413,7 +3518,7 @@ def run_spmd_moe_path(dev):
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
-        ranks = spmd.run(spmd_moe_rank, math.prod(SPMD_MESH[0]),
+        ranks = spmd.run(rank_fn, math.prod(SPMD_MESH[0]),
                          rdv_dir=str(ROOT / "build" / "spmd"), device=dev,
                          backend=spmd.STAGED, timeout=SPMD_TIMEOUT)
     finally:
@@ -3439,46 +3544,52 @@ def run_spmd_moe_path(dev):
             "grad_norm": abs(run["grad_norms"][0] - ref["train"]["grad_norm"])
             / ref["train"]["grad_norm"],
             "params": run["params_rel_gap"]}
-        if not max(gaps[rules].values()) <= SPMD_MOE_GAP:
+        if not max(gaps[rules].values()) <= SPMD_GAP:
             fails.append(f"{rules}: step 1 against the unsharded step "
-                         f"{gaps[rules]} (limit {SPMD_MOE_GAP})")
+                         f"{gaps[rules]} (limit {SPMD_GAP})")
     serve = ranks[0]["serve"]
     want_logits = ref["serve"]["logits"]
     logit_gaps = [float(np.abs(g - w).max() / np.abs(w).max())
                   for g, w in zip(serve["logits"], want_logits)]
-    if len(logit_gaps) != SPMD_NEW + 1 or \
+    if len(logit_gaps) != serve_shape[3] + 1 or \
             not max(logit_gaps) <= SPMD_LOGIT_GAP:
         fails.append(f"served logits: {logit_gaps} (limit {SPMD_LOGIT_GAP})")
     if serve["tokens"] != ref["serve"]["tokens"]:
         fails.append(f"greedy tokens {serve['tokens']} vs "
                      f"{ref['serve']['tokens']}")
-    cache_gap = 0.0
+    cache_gaps = {}
     for r in ranks:
         s = r["serve"]
-        if s["cache_placements"] != s["cache_placements_want"] or \
+        if not (s["cache_placements"] == s["decode_placements"]
+                == s["cache_placements_want"]) or \
                 s["pos"] != ref["serve"]["pos"]:
             fails.append(f"rank {r['rank']}: cache placed "
-                         f"{s['cache_placements']} at pos {s['pos']}, want "
+                         f"{s['cache_placements']} / "
+                         f"{s['decode_placements']} at pos {s['pos']}, want "
                          f"{s['cache_placements_want']} at "
                          f"{ref['serve']['pos']}")
+        if set(s["cache_shards"]) != set(ref["serve"]["cache"]):
+            fails.append(f"rank {r['rank']}: cache leaves "
+                         f"{sorted(s['cache_shards'])}")
+            continue
         for k, got in s["cache_shards"].items():
             w = ref["serve"]["cache"][k]
             sl = tuple(slice(o, o + n) for o, n in
                        zip(got["offset"], got["values"].shape))
-            cache_gap = max(cache_gap, float(
+            cache_gaps[k] = max(cache_gaps.get(k, 0.0), float(
                 np.abs(got["values"] - w[sl]).max() / np.abs(w).max()))
-    if not cache_gap <= SPMD_CACHE_GAP:
-        fails.append(f"cache shards: {cache_gap} (limit {SPMD_CACHE_GAP})")
+    if not max(cache_gaps.values(), default=math.inf) <= SPMD_CACHE_GAP:
+        fails.append(f"cache shards: {cache_gaps} (limit {SPMD_CACHE_GAP})")
     launches = {n: sum(r["launches"][n] for r in ranks) for n in
                 ranks[0]["launches"]}
     card = card_line()
     dec = sorted(serve["decode_ms"])
     report = {
         "card": card, "cfg": ranks[0]["cfg"], "n_params":
-        ranks[0]["n_params"],
-        "cut": f"{SPMD_MOE_LAYERS} of 32 layers; full width",
+        ranks[0]["n_params"], "cut": cut,
         "mesh": "(2, 2) data x model, 4 ranks on one card",
-        "backend": spmd.STAGED, "batch": BATCH, "seq": SEQ,
+        "backend": spmd.STAGED, "batch": train_shape[0],
+        "seq": train_shape[1],
         "argument_bytes_per_rank": ranks[0]["argument_bytes_want"],
         "reference": {"train": ref["train"],
                       "peak_mem_gb": ref["peak_mem_gb"]},
@@ -3486,15 +3597,15 @@ def run_spmd_moe_path(dev):
                           ("losses", "grad_norms", "step_s", "peak_mem_gb",
                            "peak_reserved_gb", "params_rel_gap")}
                   for rules, run in ranks[0]["train"].items()},
-        "rel_gaps": gaps, "limit": SPMD_MOE_GAP,
-        "collectives_rank_0": {
-            "default_step_2": ranks[0]["train"]["default"]["steps"][-1],
-            "ep_step_1": ranks[0]["train"]["ep"]["steps"][0]},
+        "rel_gaps": gaps, "limit": SPMD_GAP,
+        "collectives_rank_0": {f"{rules}_step_{i + 1}": step
+                               for rules, run in ranks[0]["train"].items()
+                               for i, step in enumerate(run["steps"])},
         "peak_mem_gb_by_rank": {
             rules: [r["train"][rules]["peak_mem_gb"] for r in ranks]
             for rules in ranks[0]["train"]},
-        "serve": {"batch": SPMD_SERVE_BATCH, "prompt": SPMD_PROMPT,
-                  "cache_len": SPMD_CACHE_LEN, "new": SPMD_NEW,
+        "serve": {"batch": serve_shape[0], "prompt": serve_shape[1],
+                  "cache_len": serve_shape[2], "new": serve_shape[3],
                   "prefill_s": serve["prefill_s"],
                   "prefill_staged": serve["prefill_staged"],
                   "decode_ms_median": dec[len(dec) // 2],
@@ -3505,13 +3616,56 @@ def run_spmd_moe_path(dev):
                                           for r in ranks],
                   "max_logit_gap": max(logit_gaps), "limit": SPMD_LOGIT_GAP,
                   "tokens_equal": serve["tokens"] == ref["serve"]["tokens"],
-                  "cache_shard_gap": cache_gap,
+                  "cache_shard_gaps": cache_gaps,
                   "cache_placements": serve["cache_placements"]},
         "wall_s": wall, "launches": launches, "failed": fails}
-    print("spmd-moe path: " + json.dumps(report))
+    print(f"{label} path: " + json.dumps(report))
     if fails:
-        raise AssertionError("spmd-moe: " + "; ".join(fails))
+        raise AssertionError(f"{label}: " + "; ".join(fails))
     return launches
+
+
+def run_spmd_moe_path(dev):
+    """mixtral-8x7b at full width (d_model 4096, 8 experts top-2, the
+    capacity dispatch; seed 0, fp32), cut to SPMD_MOE_LAYERS of its 32
+    layers, on a ``(2, 2)`` ``("data", "model")`` process mesh: 4 ranks on
+    this card, joined by the host-staged gloo group.  Trains SPMD_MOE_STEPS
+    Adafactor steps of ``build_jitted``'s step on batches BATCH × SEQ of
+    ``SyntheticLM`` under the default rules, then step 1 again from the
+    same weights under the ``ep`` set; then serves on the same weights:
+    ``build_jitted``'s sharded prefill of a SPMD_PROMPT-token prompt at
+    batch SPMD_SERVE_BATCH into a SPMD_CACHE_LEN-slot cache, and SPMD_NEW
+    greedy steps of its decode step.  The gates and records are
+    :func:`run_spmd_lm_path`'s.  Returns the ranks' summed launch counts
+    (no codec: all 0)."""
+    return run_spmd_lm_path(
+        dev, "spmd-moe", spmd_moe_rank, (BATCH, SEQ),
+        (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW),
+        f"{SPMD_MOE_LAYERS} of 32 layers; full width")
+
+
+def run_spmd_hybrid_path(dev):
+    """zamba2-7b at full width (d_model 3584, 112 SSM heads of 64, 32
+    attention heads of 112, d_ff 14336; seed 0, fp32), cut to
+    SPMD_HYBRID_LAYERS of its 81 layers (2 groups of 6 Mamba2 blocks, each
+    followed by one of the 2 shared attention + MLP blocks, and a 1-layer
+    tail), on the ``(2, 2)`` ``("data", "model")`` process mesh of
+    :func:`run_spmd_moe_path`.  Trains SPMD_HYBRID_STEPS Adafactor steps of
+    ``build_jitted``'s step on batches SPMD_HYBRID_BATCH ×
+    SPMD_HYBRID_SEQ (two SSD chunks of 128) under the default rules; then
+    serves on the same weights: the sharded prefill of a
+    SPMD_HYBRID_PROMPT-token prompt at batch SPMD_SERVE_BATCH into a
+    SPMD_HYBRID_CACHE_LEN-slot cache (the Mamba2 states with the SSM heads
+    or channels on ``model``, the shared blocks' KV caches with head_dim on
+    it), and SPMD_NEW greedy decode steps.  The gates and records are
+    :func:`run_spmd_lm_path`'s; each step's records hold the staged bytes
+    of the Mamba2 blocks' split of the sharded in_proj output.  Returns
+    the ranks' summed launch counts (no codec: all 0)."""
+    return run_spmd_lm_path(
+        dev, "spmd-hybrid", spmd_hybrid_rank,
+        (SPMD_HYBRID_BATCH, SPMD_HYBRID_SEQ),
+        (SPMD_SERVE_BATCH, SPMD_HYBRID_PROMPT, SPMD_HYBRID_CACHE_LEN,
+         SPMD_NEW), f"{SPMD_HYBRID_LAYERS} of 81 layers; full width")
 
 
 # =============================================== analysis, checks, dry run ==
@@ -3829,6 +3983,7 @@ def main() -> int:
     paths["train pipeline"], pipeline_cases = run_pipeline_path(dev)
     paths["train spmd"] = run_spmd_path(dev)
     paths["spmd moe"] = run_spmd_moe_path(dev)
+    paths["spmd hybrid"] = run_spmd_hybrid_path(dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on its path: "

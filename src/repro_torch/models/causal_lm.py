@@ -320,7 +320,7 @@ def _moe_ffn(cfg, p, h):
     if is_dtensor(h) and cfg.moe_impl != "capacity":
         raise NotImplementedError(
             f"{cfg.name}: moe_impl={cfg.moe_impl!r} on a process mesh; only "
-            f"the capacity dispatch is sharded (ragged: ROADMAP Q1.6c)")
+            f"the capacity dispatch is sharded (the others: ROADMAP Q1.6f)")
     return moe_mod.moe_apply(p["moe"], h, cfg.top_k, cfg.moe_impl,
                              cfg.capacity_factor)
 
@@ -580,7 +580,7 @@ def forward(cfg: ModelCfg, params, tokens: torch.Tensor,
             x, auxs = scan(block, x, p_seg)
             aux = aux + torch.stack(auxs).sum()
         elif seg.kind == "zamba_group":
-            shared = _shared_blocks(params)
+            shared = _shared_blocks(params, seg.count)
 
             def group(h, pl_g, sp):
                 h, _ = scan(lambda h2, pl: (_mamba_block(cfg, pl, h2), None),
@@ -621,11 +621,17 @@ def _constrain_aux(h_aux):
     return _constrain_act(h_aux[0]), h_aux[1]
 
 
-def _shared_blocks(params) -> List[Dict[str, Any]]:
-    """The hybrid's shared blocks, each a view of ``shared_attn``; group
-    ``g`` runs block ``g % len(...)``.  One ``unbind`` a call, not a
-    ``_pick`` a group, for the reason ``_pick`` gives."""
-    return unstack(params["shared_attn"])
+def _shared_blocks(params, n_groups: int) -> List[Dict[str, Any]]:
+    """The hybrid's shared blocks that ``n_groups`` groups run, each a view
+    of ``shared_attn``; group ``g`` runs block ``g % len(...)``.  One
+    ``unbind`` a call, not a ``_pick`` a group, for the reason ``_pick``
+    gives.  Blocks no group runs are sliced off first: autograd fills the
+    gradient of an unused ``unbind`` output with a plain tensor, which
+    cannot stack with DTensors (their gradient is zero all the same)."""
+    sp = params["shared_attn"]
+    if n_groups < tree_leaves(sp)[0].shape[0]:
+        sp = tree_map(lambda a: a[:n_groups], sp)
+    return unstack(sp)
 
 
 def _head(cfg, params, x):
@@ -696,7 +702,7 @@ def prefill(cfg: ModelCfg, params, tokens: torch.Tensor,
             x, cache[seg.name] = blocks_prefill(cfg, seg.kind, p_seg, x,
                                                 window, cache_len)
             continue
-        shared = _shared_blocks(params)
+        shared = _shared_blocks(params, seg.count)
         sts, kvs = [], []
         for g, pl_g in enumerate(unstack(p_seg)):
             x, st = _run_prefill(cfg, "mamba", pl_g, x, window, cache_len)
@@ -742,7 +748,7 @@ def decode_step(cfg: ModelCfg, params, cache: Dict[str, Any],
             x, new_cache[seg.name] = blocks_decode(cfg, seg.kind, p_seg, x,
                                                    c_seg, pos, window)
             continue
-        shared = _shared_blocks(params)
+        shared = _shared_blocks(params, seg.count)
         sts, kvs = [], []
         for g, xs in enumerate(unstack({"p": p_seg, "c": c_seg,
                                         "kv": cache[seg.name + "_attn"]})):

@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
-from repro_torch.distributed.sharding import is_dtensor, replicate_like
+from repro_torch.distributed.sharding import (is_dtensor, on_shards,
+                                              replicate_like)
 
 Params = Dict[str, torch.Tensor]
 
@@ -193,24 +194,70 @@ def causal_conv1d_init(gen: torch.Generator, channels: int, width: int,
 def causal_conv1d(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over time. x: (B, S, C).  The taps are summed
     one by one in tap order, as in the JAX package (``F.conv1d`` sums in
-    another order)."""
-    w = p["w"].to(x.dtype)               # (W, C)
+    another order).  On DTensors each rank convolves its batch rows and
+    channels (:func:`_by_channels`)."""
+    if is_dtensor(x):
+        return _by_channels(_conv, p["w"], p["b"], x)
+    return _conv(p["w"], p["b"], x)
+
+
+def _conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    w = w.to(x.dtype)                    # (W, C)
     width = w.shape[0]
     pad = F.pad(x, (0, 0, width - 1, 0))
     out = torch.zeros_like(x)
     for i in range(width):               # width is tiny (4); unrolled taps
         out = out + pad[:, i:i + x.shape[1], :] * w[i]
-    return out + p["b"].to(x.dtype)
+    return out + b.to(x.dtype)
 
 
 def causal_conv1d_step(p: Params, x_t: torch.Tensor, window: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single decode step. x_t: (B, C); window: (B, W-1, C) past inputs.
-    Returns (y_t, new_window)."""
-    w = p["w"].to(x_t.dtype)             # (W, C)
+    Returns (y_t, new_window); on DTensors as :func:`causal_conv1d`."""
+    if is_dtensor(x_t):
+        return _by_channels(_conv_step, p["w"], p["b"], x_t, window)
+    return _conv_step(p["w"], p["b"], x_t, window)
+
+
+def _conv_step(w, b, x_t, window):
+    w = w.to(x_t.dtype)                  # (W, C)
     full = torch.cat([window, x_t[:, None, :]], dim=1)   # (B, W, C)
-    y = torch.einsum("bwc,wc->bc", full, w) + p["b"].to(x_t.dtype)
+    y = torch.einsum("bwc,wc->bc", full, w) + b.to(x_t.dtype)
     return y, full[:, 1:, :]
+
+
+def _by_channels(fn, w, b, *acts):
+    """``fn(w, b, *acts)`` on DTensor activations (batch first, channels
+    last; one result placed as each), each rank on its batch rows where
+    the mesh shards them and on its channels on ``model`` where it divides
+    them: the conv is depthwise, so each rank computes its share as one
+    device would.  The weight (W, C) and bias (C,) follow the channels,
+    their taps whole (``w[i]`` never indexes a sharded dimension); a
+    rank's gradient of them covers only its rows, so it is ``Partial`` on
+    the axes that shard the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x = acts[0]
+    mesh = x.device_mesh
+    axes = ["rows" if pl == Shard(0) else
+            "channels" if name == "model" and x.shape[-1] % size == 0 else
+            None for name, size, pl in zip(mesh.mesh_dim_names, mesh.shape,
+                                           x.placements)]
+
+    def placed(t, rows=True):
+        return [Shard(0) if a == "rows" and rows else
+                Shard(t.dim() - 1) if a == "channels" else Replicate()
+                for a in axes]
+
+    def grad(t):
+        return [Partial() if a == "rows" else pl
+                for a, pl in zip(axes, placed(t, rows=False))]
+    acts = [a.redistribute(mesh, placed(a)) for a in acts]
+    w, b = (t.redistribute(mesh, placed(t, rows=False)) for t in (w, b))
+    outs = [placed(a) for a in acts]
+    return on_shards(fn, outs[0] if len(outs) == 1 else tuple(outs), w, b,
+                     *acts, in_grad_placements=[grad(w), grad(b)]
+                     + [None] * len(acts))
 
 
 # -------------------------------------------------------------------- loss --

@@ -11,8 +11,15 @@ intra-chunk terms are dense einsums, the inter-chunk terms a short loop
 over per-chunk states (S/Lc steps), with the state in fp32.  ngroups=1
 (B/C shared across heads), a scalar A per head — the Mamba2 defaults.
 The reference has no Pallas kernel here (plain ``jnp`` einsums and a
-``lax.scan``), so neither has the port.  Its sharding ``constrain`` calls
-are the identity on one device and are left out.
+``lax.scan``), so neither has the port.  The SSD makes the reference's
+five sharding ``constrain`` calls (x, Δt and log A, then the segment sums
+and the decay, with the heads on ``model``): the identity on one device,
+a redistribution of DTensors on a process mesh.  The segment sums, and
+everything from the decay on, are independent across batch rows and
+heads, so on DTensors each rank runs them on its own rows and heads
+(``sharding.on_shards``, every placement stated): the causal mask, the
+recurrence and its zero state are the rank's own, with no collective.
+The decode step's state update runs the same way.
 
 Decode is the O(1)-state recurrence (:func:`mamba_decode_step`).
 """
@@ -25,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
+from repro_torch.distributed.sharding import constrain, is_dtensor, on_shards
 from .layers import (causal_conv1d, causal_conv1d_init, causal_conv1d_step,
                      dense_init, init_device, rmsnorm, rmsnorm_init)
 
@@ -85,7 +93,12 @@ def _split_proj(cfg: MambaCfg, zxbcdt: torch.Tensor):
 
 def _segsum_chunk(log_a: torch.Tensor) -> torch.Tensor:
     """log_a: (..., Lc).  Returns (..., Lc, Lc) with [l, m] = Σ_{j=m+1..l},
-    -inf above the diagonal (strictly causal cumulative decay)."""
+    -inf above the diagonal (strictly causal cumulative decay).  On a
+    DTensor each rank sums its own rows (the last axis whole): DTensor in
+    torch 2.11 has no sharding strategy for the flip in cumsum's
+    backward."""
+    if is_dtensor(log_a):               # placed with the last axis whole
+        return on_shards(_segsum_chunk, list(log_a.placements), log_a)
     L = log_a.shape[-1]
     s = torch.cumsum(log_a, dim=-1)
     diff = s[..., :, None] - s[..., None, :]      # s_l - s_m
@@ -114,10 +127,37 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Bc = Bm.reshape(Bsz, nc, chunk, ds)
     Cc = Cm.reshape(Bsz, nc, chunk, ds)
 
+    # the SSM heads on the model axis, as in the reference: the
+    # (B,nc,nh,Lc,Lc) decay is the largest tensor of the chunked SSD
+    xc = constrain(xc, ("batch", None, None, "model", None))
+    dtc = constrain(dtc, ("batch", None, None, "model"))
     log_a = A[None, None, None, :] * dtc                # (B,nc,Lc,nh) ≤ 0
+    log_a = constrain(log_a, ("batch", None, None, "model"))
     seg = _segsum_chunk(log_a.movedim(-1, -2))          # (B,nc,nh,Lc,Lc)
+    seg = constrain(seg, ("batch", None, "model", None, None))
     decay = torch.exp(seg)
+    decay = constrain(decay, ("batch", None, "model", None, None))
 
+    args = (xc, dtc, log_a, decay, Bc, Cc, x, D, h0)
+    if is_dtensor(xc):
+        # what follows is independent across batch rows and heads: each
+        # rank computes its share as one device would
+        axes = _rows_and_heads(xc, head_dim=3)
+        return _on_rows_and_heads(
+            _ssd_from_decay, axes, args,
+            ((True, 3), (True, 3), (True, 3), (True, 2), (True, None),
+             (True, None), (True, 2), (False, 0), (True, 1)),
+            ((True, 2), (True, 1)))
+    return _ssd_from_decay(*args)
+
+
+def _ssd_from_decay(xc, dtc, log_a, decay, Bc, Cc, x, D, h0):
+    """The chunked SSD from the decay on: the intra-chunk products, the
+    per-chunk states, their recurrence and the inter-chunk term, and the
+    D skip.  The shapes come from the tensors, so it runs on any rank's
+    batch rows and heads."""
+    Bsz, S, nh, hd = x.shape
+    nc = xc.shape[1]
     # intra-chunk: y[l] += Σ_{m≤l} (C_l·B_m) exp(s_l-s_m) dt_m x_m, the
     # multi-operand product decomposed in the reference's order
     CB = torch.einsum("bcls,bcms->bclm", Cc, Bc)        # (B,nc,Lc,Lc)
@@ -135,8 +175,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # inter-chunk recurrence h_c = decay_c · h_{c-1} + H_c, in fp32
     h = (h0.to(torch.float32) if h0 is not None
-         else torch.zeros((Bsz, nh, ds, hd), dtype=torch.float32,
-                          device=x.device))
+         else torch.zeros_like(H[:, 0], dtype=torch.float32))
     h_starts = []                                       # state at chunk start
     for c in range(nc):
         h_starts.append(h)
@@ -149,6 +188,43 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = (Y_intra.to(torch.float32) + Y_inter).reshape(Bsz, S, nh, hd)
     y = y.to(x.dtype) + x * D[None, None, :, None].to(x.dtype)
     return y, h
+
+
+def _rows_and_heads(t: torch.Tensor, head_dim: int) -> Tuple[Any, ...]:
+    """What each mesh axis shards of the DTensor ``t``: ``"rows"`` (its
+    batch, dimension 0), ``"heads"`` (dimension ``head_dim``) or nothing
+    (``None``)."""
+    from torch.distributed.tensor import Shard
+    return tuple("rows" if pl == Shard(0) else
+                 "heads" if pl == Shard(head_dim) else None
+                 for pl in t.placements)
+
+
+def _on_rows_and_heads(fn, axes, args, specs, out_specs):
+    """``fn(*args)`` on each rank's batch rows and SSM heads, as
+    :func:`_rows_and_heads` names the mesh axes.  ``specs`` (one per
+    argument) and ``out_specs`` (one per result) are (whether dimension 0
+    is the batch, the heads' dimension or ``None``); every DTensor
+    argument is placed so, and ``None`` passes through.  A rank's gradient
+    of an argument without rows (D) covers only its rows, and of one
+    without heads (B, C) only its heads: ``Partial`` on that axis."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    def placed(rows, head):
+        return [Shard(0) if a == "rows" and rows else
+                Shard(head) if a == "heads" and head is not None else
+                Replicate() for a in axes]
+
+    def grad(rows, head):
+        return [Partial() if (a == "rows" and not rows)
+                or (a == "heads" and head is None) else pl
+                for a, pl in zip(axes, placed(rows, head))]
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    args = [a if a is None else a.redistribute(mesh, placed(*sp))
+            for a, sp in zip(args, specs)]
+    return on_shards(fn, tuple(placed(*sp) for sp in out_specs), *args,
+                     in_grad_placements=[None if a is None else grad(*sp)
+                                         for a, sp in zip(args, specs)])
 
 
 def _ssm_inputs(p, cfg: MambaCfg, conv_out: torch.Tensor, dt: torch.Tensor):
@@ -207,15 +283,28 @@ def mamba_decode_step(p, x_t: torch.Tensor, state: MambaState,
     conv_in = torch.cat([xi, Bc, Cc], dim=-1)
     conv_out, new_window = causal_conv1d_step(p["conv"], conv_in, state.conv)
     xi, Bc, Cc, dt = _ssm_inputs(p, cfg, conv_out, dt)          # dt (B,nh)
-    a = torch.exp(-torch.exp(p["A_log"])[None, :] * dt)         # (B,nh)
     xh = xi.reshape(B, cfg.n_heads, cfg.head_dim)
-    # h = a·h + dt · B ⊗ x
-    upd = torch.einsum("bh,bs,bhp->bhsp", dt.to(x_t.dtype), Bc, xh)
-    h = a[:, :, None, None].to(x_t.dtype) * state.h + upd
-    y = torch.einsum("bs,bhsp->bhp", Cc, h) \
-        + xh * p["D"][None, :, None].to(x_t.dtype)
+    args = (dt, Bc, Cc, xh, state.h, p["A_log"], p["D"])
+    if is_dtensor(state.h):            # each rank on its rows and heads
+        y, h = _on_rows_and_heads(
+            _state_update, _rows_and_heads(state.h, head_dim=1), args,
+            ((True, 1), (True, None), (True, None), (True, 1), (True, 1),
+             (False, 0), (False, 0)), ((True, 1), (True, 1)))
+    else:
+        y, h = _state_update(*args)
     y = _out(p, y.reshape(B, cfg.d_inner), z, x_t)
     return y, MambaState(h=h, conv=new_window)
+
+
+def _state_update(dt, Bc, Cc, xh, h, A_log, D):
+    """One token's recurrence, h = a·h + Δt · B ⊗ x and y = C · h + D · x:
+    (y (B,nh,hd), the new h)."""
+    a = torch.exp(-torch.exp(A_log)[None, :] * dt)             # (B,nh)
+    upd = torch.einsum("bh,bs,bhp->bhsp", dt.to(xh.dtype), Bc, xh)
+    h = a[:, :, None, None].to(xh.dtype) * h + upd
+    y = torch.einsum("bs,bhsp->bhp", Cc, h) \
+        + xh * D[None, :, None].to(xh.dtype)
+    return y, h
 
 
 def ssd_reference(x, dt, A, Bm, Cm, D):

@@ -195,11 +195,13 @@ def test_capacity_drops_entries(both, case):
 @pytest.mark.parametrize("arch,impl", ranks.REFUSED,
                          ids=[a for a, _ in ranks.REFUSED])
 def test_refused_on_a_process_mesh(both, arch, impl):
-    """The ragged dispatch and the hybrid, xLSTM and encoder-decoder
-    families raise NotImplementedError naming Q1.6c, for every step kind."""
+    """The ragged dispatch and the xLSTM and encoder-decoder families raise
+    NotImplementedError naming the ROADMAP slice that brings each (Q1.6f,
+    Q1.6d, Q1.6e), for every step kind."""
     _, port = both
     for kind in ("train", "prefill", "decode"):
         msg = port[0]["refused"][(arch, kind)]
-        assert msg.startswith("NotImplementedError") and "Q1.6c" in msg, msg
+        assert msg.startswith("NotImplementedError") \
+            and ranks.REFUSED_SLICE[arch] in msg, msg
         if impl:
             assert impl in msg and "smoke" in msg, msg

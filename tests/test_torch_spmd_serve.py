@@ -230,4 +230,5 @@ def test_refused_on_a_process_mesh(both):
     for arch, _ in ranks.REFUSED:
         for kind in ("prefill", "decode"):
             msg = port[0]["refused"][(arch, kind)]
-            assert msg.startswith("NotImplementedError"), msg
+            assert msg.startswith("NotImplementedError") \
+                and ranks.REFUSED_SLICE[arch] in msg, msg

@@ -22,7 +22,10 @@ family's train step on the same mesh, under each override set's rules and
 parameter overrides, counting the (token, choice) entries the capacity
 dispatch drops; ``run_serve_ranks`` (``tests/test_torch_spmd_serve.py``)
 the sharded prefill and decode steps.  Both check that the families and
-dispatch the process mesh does not run yet raise.
+dispatch the process mesh does not run yet raise.  ``run_hybrid_ranks``
+(``tests/test_torch_spmd_hybrid.py``) takes the hybrid family's train
+step and ``ssd_chunked`` alone on DTensors; ``run_hybrid_serve_ranks``
+(``tests/test_torch_spmd_hybrid_serve.py``) its prefill and greedy decode.
 """
 from __future__ import annotations
 
@@ -45,9 +48,18 @@ MOE_STEPS = 2
 # DECODE_STEPS steps of given tokens
 SERVE_ARCHS = ("gpt2-xl", "llama3-8b", "internvl2-2b", "mixtral-8x7b")
 PROMPT, CACHE_LEN, DECODE_STEPS = 16, 32, 4
-# what the process mesh does not run yet: (arch, moe_impl or None)
-REFUSED = (("mixtral-8x7b", "ragged"), ("zamba2-7b", None),
-           ("xlstm-1_3b", None), ("seamless-m4t-large-v2", None))
+# what the process mesh does not run yet: (arch, moe_impl or None), and
+# the ROADMAP slice that each refusal names
+REFUSED = (("mixtral-8x7b", "ragged"), ("xlstm-1_3b", None),
+           ("seamless-m4t-large-v2", None))
+REFUSED_SLICE = {"mixtral-8x7b": "Q1.6f", "xlstm-1_3b": "Q1.6d",
+                 "seamless-m4t-large-v2": "Q1.6e"}
+# the hybrid family: zamba2-smoke cut to 7 layers (3 groups of 2, each
+# followed by one of the 2 shared blocks, and a 1-layer tail); 4 × 16
+# tokens span two SSD chunks of 8
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_STEPS = "zamba2-7b", 7, 2
+# the SSD alone: (batch, seq, heads, head_dim, d_state), chunk
+SSD_SHAPE, SSD_CHUNK = (4, 16, 8, 32, 16), 8
 
 
 # the JAX side's helpers, for the subprocess scripts of the test files: a
@@ -108,6 +120,12 @@ def smoke_cfg(arch, moe_impl="capacity"):
     from repro_torch.configs import resolve
     cfg = resolve(arch).smoke
     return cfg.replace(moe_impl=moe_impl) if cfg.family == "moe" else cfg
+
+
+def hybrid_cfg():
+    """zamba2-smoke with HYBRID_LAYERS layers."""
+    from repro_torch.configs import resolve
+    return resolve(HYBRID_ARCH).smoke.replace(n_layers=HYBRID_LAYERS)
 
 
 def cases():
@@ -198,9 +216,8 @@ def _constrain(dev) -> dict:
     return out
 
 
-def _train(dev, arch, run) -> dict:
+def _train(dev, cfg, run) -> dict:
     from repro_torch.checkpoint import from_numpy_tree, to_numpy_tree
-    from repro_torch.configs import resolve
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed.params import shard_tree
     from repro_torch.distributed.sharding import use_mesh
@@ -208,7 +225,6 @@ def _train(dev, arch, run) -> dict:
     from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.optim import adafactor
 
-    cfg = resolve(arch).smoke
     batches = [{k: torch.as_tensor(v, device=dev, dtype=torch.long
                                    if v.dtype.kind == "i" else None)
                 for k, v in b.items()} for b in run["batches"]]
@@ -295,10 +311,11 @@ def _adamw(dev, run) -> dict:
 
 
 def run_ranks(rank, dev, runs) -> dict:
+    from repro_torch.configs import resolve
     from repro_torch.launch import spmd
     spmd.reset_staged_counts()
     out = {"placements": _placements(dev), "constrain": _constrain(dev),
-           "train": {arch: _train(dev, arch, run)
+           "train": {arch: _train(dev, resolve(arch).smoke, run)
                      for arch, run in runs.items()},
            "adamw": _adamw(dev, runs["gpt2-xl"])}
     out["staged"] = spmd.staged_counts()
@@ -399,7 +416,10 @@ def run_moe_ranks(rank, dev, runs) -> dict:
     return out
 
 
-def _serve(dev, arch, run) -> dict:
+def _serve(dev, cfg, run) -> dict:
+    """The sharded prefill of ``run["prompt"]`` and decode steps of
+    ``run["tokens"]`` (or, without them, ``run["greedy"]`` greedy steps),
+    and on rank 0 the unsharded steps alike."""
     from repro_torch.checkpoint import from_numpy_tree, to_numpy_tree
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed.params import shard_tree
@@ -409,7 +429,6 @@ def _serve(dev, arch, run) -> dict:
                                                make_prefill_step)
     from repro_torch.launch.mesh import make_process_mesh
 
-    cfg = smoke_cfg(arch)
     B = run["prompt"].shape[0]
     mesh = make_process_mesh((2, 2), ("data", "model"), dev)
     pf, _, p_meta = build_jitted(cfg, mesh, InputShape(
@@ -423,8 +442,15 @@ def _serve(dev, arch, run) -> dict:
                                         device=dev)}
     if "prefix" in run:
         prompt["prefix_embeds"] = torch.as_tensor(run["prefix"], device=dev)
-    tokens = [torch.as_tensor(t, dtype=torch.long, device=dev)
-              for t in run["tokens"]]
+    given = [torch.as_tensor(t, dtype=torch.long, device=dev)
+             for t in run.get("tokens", ())]
+
+    def tokens(logits_of):
+        """The given tokens, or each step's greedy token, by step."""
+        for i in range(len(given) or run["greedy"]):
+            yield given[i] if given else torch.argmax(
+                logits_of()[:, -1], dim=-1)[:, None].to(dev)
+
     with use_mesh(mesh):
         logits, cache = pf(params, shard_tree(prompt, b_sh))
     out = {"logits": [logits.full_tensor().numpy()],
@@ -435,7 +461,9 @@ def _serve(dev, arch, run) -> dict:
            "placements_want": {k: [str(p) for p in v.placements]
                                for k, v in _leaves_by_path(
                                    p_meta["cache_sh"]).items()}}
-    for t in tokens:
+    out["tokens"] = []
+    for t in tokens(lambda: torch.as_tensor(out["logits"][-1])):
+        out["tokens"].append(t[:, 0].tolist())
         with use_mesh(mesh):
             logits, cache = df(params, cache, distribute(t, t_sh))
         out["logits"].append(logits.full_tensor().numpy())
@@ -449,7 +477,9 @@ def _serve(dev, arch, run) -> dict:
         step = make_decode_step(cfg, cfg.window)
         out["unsharded_logits"] = [logits.numpy()]
         out["unsharded_prefill_cache"] = to_numpy_tree(c)
-        for t in tokens:
+        out["unsharded_tokens"] = []
+        for t in tokens(lambda: logits):
+            out["unsharded_tokens"].append(t[:, 0].tolist())
             logits, c = step(whole, c, t)
             out["unsharded_logits"].append(logits.numpy())
         out["unsharded_cache"] = to_numpy_tree(c)
@@ -458,6 +488,91 @@ def _serve(dev, arch, run) -> dict:
 
 def run_serve_ranks(rank, dev, runs) -> dict:
     """``runs[arch]``: the weights, the prompt and the decode tokens."""
-    return {"serve": {arch: _serve(dev, arch, run)
+    return {"serve": {arch: _serve(dev, smoke_cfg(arch), run)
                       for arch, run in runs.items()},
             "refused": _refused(dev)}
+
+
+def _ssd(dev, run) -> dict:
+    """``ssd_chunked`` on DTensors, batch on ``data`` and heads on
+    ``model`` (B and C replicated over ``model``, A and D split by head),
+    under the mesh's rules: the output's and final state's placements and
+    their gaps to the unsharded ``ssd_chunked`` on the whole inputs."""
+    import numpy as np
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import ssm
+
+    mesh = make_process_mesh((2, 2), ("data", "model"), dev)
+    whole = {k: torch.as_tensor(v, device=dev) for k, v in run.items()}
+    heads = {"x": 2, "dt": 2, "A": 0, "D": 0}
+    args = {}
+    for k, t in whole.items():
+        rows = Shard(0) if k not in ("A", "D") else Replicate()
+        by_head = Shard(heads[k]) if k in heads else Replicate()
+        args[k] = distribute_tensor(t, mesh.device_mesh, [rows, by_head])
+    order = ("x", "dt", "A", "Bm", "Cm", "D")
+    with use_mesh(mesh):
+        y, h = ssm.ssd_chunked(*(args[k] for k in order), SSD_CHUNK)
+    y_want, h_want = ssm.ssd_chunked(*(whole[k] for k in order), SSD_CHUNK)
+
+    def rel(got, want):
+        got, want = got.full_tensor().cpu().numpy(), want.cpu().numpy()
+        return float(np.abs(got - want).max() / np.abs(want).max())
+    return {"y_gap": rel(y, y_want), "h_gap": rel(h, h_want),
+            "y_placements": [str(p) for p in y.placements],
+            "h_placements": [str(p) for p in h.placements],
+            "h_dtype": str(h.dtype)}
+
+
+def _one_group(dev, batch) -> dict:
+    """The loss and gradients of zamba2-smoke cut to 3 layers (one group,
+    so the second shared block is unused, and a tail) on DTensors, against
+    the unsharded ones: the loss's gap, the gradients' gap as one vector,
+    and the largest |gradient| of the unused block."""
+    from repro_torch.distributed.params import shard_tree
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.distributed.steps import build_jitted, loss_and_grad
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import causal_lm
+
+    cfg = hybrid_cfg().replace(n_layers=3)
+    mesh = make_process_mesh((2, 2), ("data", "model"), dev)
+    _, _, meta = build_jitted(cfg, mesh, InputShape("spmd", SEQ, 4, "train"))
+    p_sh, _, b_sh = meta["in_shardings"]
+    whole = causal_lm.init(cfg, torch.Generator().manual_seed(0))
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in batch.items()}
+    with use_mesh(mesh):
+        loss, _, grads = loss_and_grad(cfg, shard_tree(whole, p_sh),
+                                       shard_tree(batch, b_sh))
+    w_loss, _, w_grads = loss_and_grad(cfg, whole, batch)
+    got = torch.cat([g.full_tensor().reshape(-1)
+                     for g in tree_leaves(grads)]).double()
+    want = torch.cat([g.reshape(-1) for g in tree_leaves(w_grads)]).double()
+    unused = max(float(g.full_tensor()[1].abs().max())
+                 for g in tree_leaves(grads["shared_attn"]))
+    return {"loss_gap": abs(float(loss.full_tensor()) - float(w_loss))
+            / float(w_loss),
+            "grad_gap": float((got - want).norm() / want.norm()),
+            "unused_block_max_grad": unused}
+
+
+def run_hybrid_ranks(rank, dev, run) -> dict:
+    """``run``: the weights and batches of the hybrid train step, and the
+    SSD's inputs."""
+    from repro_torch.launch import spmd
+    spmd.reset_staged_counts()
+    out = {"train": _train(dev, hybrid_cfg(), run), "ssd": _ssd(dev,
+                                                               run["ssd"]),
+           "one_group": _one_group(dev, run["batches"][0])}
+    out["staged"] = spmd.staged_counts()
+    return out
+
+
+def run_hybrid_serve_ranks(rank, dev, run) -> dict:
+    """``run``: the weights, the prompt and the number of greedy steps."""
+    return {"serve": _serve(dev, hybrid_cfg(), run)}
