@@ -137,12 +137,17 @@
    tokens/s, and a steady step's collectives by kind (CommDebugMode's
    count, the staged group's calls and bytes); no codec runs; then, on
    the same mesh, mixtral-8x7b at full width cut to 2 layers (2
-   Adafactor steps under the default rules, one under ``ep``) and
-   zamba2-7b at full width cut to 13 layers (2 Adafactor steps at 4 ×
-   256, two SSD chunks), each also served sharded (batch 4, a prompt into
-   a placed cache, 16 greedy steps), held to the same gates against the
-   unsharded steps on rank 0, with the served logits, tokens and every
-   cache shard; no codec runs;
+   Adafactor steps under the default rules, one under ``ep``), zamba2-7b
+   at full width cut to 13 layers (2 Adafactor steps at 4 × 256, two SSD
+   chunks) and xlstm-1.3b at full width cut to 24 layers (2 Adafactor
+   steps at 4 × 256; the mLSTM's parallel form and the sLSTM's time loop
+   on each rank's rows and heads; rank 0 also serves in float64, for the
+   fp32 floor of each served number; the sLSTM bias, whose step-1 update
+   rounding decides, held apart from the parameters' gap), each also served
+   sharded (batch 4, a prompt into a placed cache, 16 greedy steps; the
+   xLSTM decode step leaves its matrix memory where the cache holds it),
+   held to the same gates against the unsharded steps on rank 0, with the
+   served logits, tokens and every cache shard; no codec runs;
 15. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
    versions at every (boundary shape, k a block) that the training,
    elastic and pipeline paths gave them, derived from each step's plan;
@@ -2936,6 +2941,7 @@ def check_pipeline_smoke(dev) -> dict:
 SPMD_MESH = ((2, 2), ("data", "model"))
 SPMD_STEPS = 3              # Adafactor steps (build_jitted's default)
 SPMD_GAP = 1e-5             # step 1 against the unsharded step, rel
+SPMD_LR = 1e-3              # Adafactor's (build_jitted's default)
 SPMD_TIMEOUT = 900.0        # every wait of the ranks
 
 
@@ -3140,12 +3146,34 @@ SPMD_CACHE_LEN = 256
 SPMD_NEW = 16               # greedy decode steps
 SPMD_LOGIT_GAP = 1e-5       # served logits vs unsharded, rel to max |logit|
 SPMD_CACHE_GAP = 1e-5       # final cache shards vs unsharded slices, rel
+# a served number that misses its gate passes only if its distance from
+# float64 is within this many times the unsharded fp32 step's (its fp32
+# floor): sound runs read at most 0.92 at xlstm-1_3b-l24 and 1.29 at full
+# depth, a run serving with TF32 matmuls 404 or more (PERF.md §6,
+# tools/spmd_xlstm_floor.py)
+SPMD_FLOOR_FACTOR = 1.5
 SPMD_HYBRID_ARCH = "zamba2-7b"
 SPMD_HYBRID_LAYERS = 13     # of 81: 2 groups of 6, both shared blocks, a tail
 SPMD_HYBRID_STEPS = 2       # Adafactor steps under the default rules
 SPMD_HYBRID_BATCH, SPMD_HYBRID_SEQ = 4, 256   # two SSD chunks of 128
 SPMD_HYBRID_PROMPT = 256
 SPMD_HYBRID_CACHE_LEN = 512
+SPMD_XLSTM_ARCH = "xlstm-1_3b"
+SPMD_XLSTM_LAYERS = 24      # of 48: 3 of the 6 groups of 7 mLSTM + 1 sLSTM
+SPMD_XLSTM_STEPS = 2        # Adafactor steps under the default rules
+# the leaf whose step-1 update rounding decides: the sLSTM bias, whose
+# input-gate row has a gradient of zero in exact arithmetic (the cell's
+# output is invariant to a common shift of a row's log input gates);
+# Adafactor scales that noise to a real step, and its leaf-wide RMS clip
+# carries it to the other gates' rows (tests/test_torch_spmd_xlstm.py
+# shows JAX's own (2, 2) and (1, 1) steps parting there by 1.3e-2)
+SPMD_XLSTM_NOISE_LEAF = "groups/s/slstm/b"
+SPMD_XLSTM_NOISE_ROW = 1    # its input-gate row (gate axis: z, i, f, o)
+# the other rows' moves after the one scale that fits them best, their
+# residual relative to their largest move, at most: a sound run reads
+# 1.62e-3 at xlstm-1_3b-l24, a run whose b gradient covers only each
+# rank's rows 1.05 (PERF.md §6, tools/spmd_xlstm_floor.py)
+SPMD_NOISE_RESIDUAL = 1e-2
 
 
 def spmd_moe_cfg():
@@ -3165,6 +3193,16 @@ def spmd_hybrid_cfg():
     cfg = resolve(SPMD_HYBRID_ARCH).full
     return cfg.replace(n_layers=SPMD_HYBRID_LAYERS,
                        name=f"{cfg.name}-l{SPMD_HYBRID_LAYERS}")
+
+
+def spmd_xlstm_cfg():
+    """xlstm-1.3b at full width, SPMD_XLSTM_LAYERS of its 48 layers."""
+    from repro_torch.configs import resolve
+    cfg = resolve(SPMD_XLSTM_ARCH).full
+    if SPMD_XLSTM_LAYERS == cfg.n_layers:
+        return cfg
+    return cfg.replace(n_layers=SPMD_XLSTM_LAYERS,
+                       name=f"{cfg.name}-l{SPMD_XLSTM_LAYERS}")
 
 
 def owned_shards(tree):
@@ -3187,13 +3225,138 @@ def leaves_by_path(tree) -> dict:
     return out
 
 
+def cache_to_exact(cache, c_sh, exact, coords, rank) -> dict:
+    """This rank's shards of each leaf of the sharded ``cache`` against
+    rank 0's float64 cache ``exact["cache"]`` (its host copy, scattered
+    slice by slice through the staged group), group by group (the leading
+    axis, which no mesh axis shards): the largest |difference| of each
+    group, and on rank 0 each group's largest |float64 value|, by leaf.
+    One group's slices are on the host at a time."""
+    import torch
+    import torch.distributed as dist
+    out = {"cache_abs64": {}, "cache_norms64": {}}
+    shardings = leaves_by_path(c_sh)
+    for k, v in leaves_by_path(cache).items():
+        if k == "pos":
+            continue
+        sh, shape = shardings[k], tuple(v.shape)
+        local = sh.shard_shape(shape)
+        if local[0] != shape[0]:
+            raise AssertionError(f"{k}: the group axis is sharded {sh}")
+        if rank == 0:
+            out["cache_norms64"][k] = [
+                float(x.abs().max()) for x in exact["cache"][k]]
+        got = v.to_local()
+        out["cache_abs64"][k] = []
+        for g in range(shape[0]):
+            mine = torch.empty(local[1:], dtype=torch.float64)
+            parts = None
+            if rank == 0:
+                parts = [exact["cache"][k][g][sh.local_slices(shape, c)[1:]]
+                         .double().contiguous() for c in coords]
+            dist.scatter(mine, parts, src=0)
+            del parts
+            out["cache_abs64"][k].append(
+                float((got[g].cpu().double() - mine).abs().max()))
+    return out
+
+
+def train_floor(cfg, opt, whole, batch, ref, ref_new, skip) -> dict:
+    """The fp32 floor of step 1 of ``cfg``: the unsharded step in float64
+    (checkpointing each block, to fit beside the other ranks; Adafactor's
+    factors stay fp32, as the optimizer keeps them) against the fp32
+    reference's loss and ``grad_norm`` in ``ref["train"]`` and its updated
+    parameters ``ref_new`` as one vector (leaf ``skip`` left out), each
+    relative to the float64 value; and the float64 loss and ``grad_norm``
+    and, on the host, each updated parameter's float64 value less
+    ``ref_new``'s (``"delta"``, in fp32: half the bytes), which the sharded
+    step is held to."""
+    import torch
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.core.rad import tree_map
+    from repro_torch.distributed.steps import make_train_step
+    cfg64 = cfg.replace(dtype=torch.float64, param_dtype=torch.float64,
+                        remat=True)
+    w64 = tree_map(lambda t: t.double() if t.is_floating_point() else t,
+                   whole)
+    new, _, m = make_train_step(cfg64, opt)(w64, opt.init(w64), batch)
+    del w64
+    exact = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+             "delta": []}
+    num = den = 0.0
+    for j, (a, b) in enumerate(zip(ref_new, tree_leaves(new))):
+        b = b.cpu()
+        exact["delta"].append((b - a.double()).float())
+        if j != skip:
+            num += float((a.double() - b).square().sum())
+            den += float(b.square().sum())
+    del new, m
+    out = {k: abs(ref["train"][k] - exact[k]) / abs(exact[k])
+           for k in ("loss", "grad_norm")}
+    out["params"] = math.sqrt(num / den)
+    return out, exact
+
+
+def serve_floor(cfg, whole, prompt, ref, cache_len) -> dict:
+    """The fp32 floor of serving ``cfg``: the prefill of ``prompt`` and
+    the decode of the fp32 reference's tokens, unsharded in float64 (the
+    gates stay fp32, as the model keeps them), against the fp32
+    reference's logits and final cache in ``ref["serve"]``: the relative
+    gap of the logits at each step, and of each cache leaf group by group
+    (its leading axis), each relative to its largest |value|; and the
+    float64 logits and cache (on the host), which the sharded steps are
+    held to."""
+    import numpy as np
+    import torch
+    from repro_torch.core.rad import tree_map
+    from repro_torch.distributed.steps import (make_decode_step,
+                                               make_prefill_step)
+    cfg64 = cfg.replace(dtype=torch.float64, param_dtype=torch.float64)
+    w64 = tree_map(lambda t: t.double() if t.is_floating_point() else t,
+                   whole)
+
+    def gap(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+    logits, cache = make_prefill_step(cfg64, cache_len, cfg.window)(
+        w64, {"tokens": prompt})
+    step = make_decode_step(cfg64, cfg.window)
+    exact_logits = [logits[:, -1, :cfg.vocab].cpu().numpy()]
+    for tok in ref["serve"]["tokens"]:
+        logits, cache = step(w64, cache, torch.as_tensor(
+            tok, device=prompt.device)[:, None])
+        exact_logits.append(logits[:, -1, :cfg.vocab].cpu().numpy())
+    gaps = [gap(a, b) for a, b in zip(ref["serve"]["logits"], exact_logits)]
+    exact = {"logits": exact_logits, "cache": {k: v.cpu() for k, v in
+                                               leaves_by_path(cache).items()
+                                               if k != "pos"}}
+    cache_gaps = {k: [gap(ref["serve"]["cache"][k][g], v[g].numpy())
+                      for g in range(v.shape[0])]
+                  for k, v in exact["cache"].items()}
+    del w64, cache, logits
+    return {"logits": gaps, "cache": cache_gaps}, exact
+
+
+def within(limit: float, gap: float, floor, gap64) -> bool:
+    """A served number's gate: its gap to the unsharded fp32 reference
+    within ``limit``; or, where the phase measured the fp32 floor (``floor``,
+    the unsharded fp32 reference's distance from float64) and the sharded
+    number's own distance from float64 (``gap64``), that distance within
+    SPMD_FLOOR_FACTOR × the floor: the sharded result is as exact as fp32
+    arithmetic makes the unsharded one, give or take its rounding."""
+    if gap <= limit:
+        return True
+    return floor is not None and gap64 is not None \
+        and gap64 <= SPMD_FLOOR_FACTOR * floor
+
+
 def staged_bytes() -> int:
     from repro_torch.launch import spmd
     return sum(v for k, v in spmd.staged_counts().items()
                if k.endswith("_bytes"))
 
 
-def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape):
+def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
+                 noise=None, floors=()):
     """One rank of a phase that trains and serves ``cfg`` sharded over a
     ``SPMD_MESH`` process mesh (see :func:`run_spmd_lm_path`).
 
@@ -3201,7 +3364,22 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape):
     ``rule_sets`` maps a label to (override set or ``None``, Adafactor
     steps), each run from the same initial weights; ``serve_shape`` is
     (batch, prompt, cache_len, greedy steps).  The unsharded reference
-    (step 1 and the served tokens) runs on rank 0 alone first."""
+    (step 1 and the served tokens) runs on rank 0 alone first.
+    ``noise`` is (the path of a leaf whose step-1 update rounding decides,
+    the index of its row on axis 1 whose gradient is zero in exact
+    arithmetic) or ``None``: that leaf is left out of the parameters' gap
+    and held on its own to what Adafactor fixes whatever the noise: each
+    side's update has a root mean square above 0 and at most lr (the RMS
+    clip), every entry is within lr × sqrt(size) of the reference's,
+    the largest move the clip allows, and the other rows' moves, after
+    the one scale that fits them best (the clip's, which the noise sets),
+    are the reference's within SPMD_NOISE_RESIDUAL of their largest move.
+    ``floors`` names what rank 0 also runs unsharded in float64:
+    ``"train"``, step 1 (:func:`train_floor`), and ``"serve"``, the
+    serving of the same tokens (:func:`serve_floor`); the fp32
+    reference's distance from it is the fp32 floor of each such
+    number."""
+    import numpy as np
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor.debug import CommDebugMode
@@ -3230,7 +3408,8 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape):
     fn, args, meta = build_jitted(cfg, mesh, InputShape("spmd-train", seq,
                                                         batch, "train"))
     p_sh, o_sh, b_sh = meta["in_shardings"]
-    opt = adafactor(1e-3)
+    noise_j = list(leaves_by_path(p_sh)).index(noise[0]) if noise else None
+    opt = adafactor(SPMD_LR)
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0, order=1)
     n_batches = max(n for _, n in rule_sets.values())
     batches = [{k: torch.as_tensor(v, dtype=torch.int32, device=dev)
@@ -3256,9 +3435,14 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape):
     # the unsharded reference, on rank 0 alone, before the sharded run:
     # step 1 and the served tokens; its results wait on the host
     ref = {}
+    init_noise = None                   # the noise leaf's initial value
+    exact_train = exact_serve = None    # rank 0's float64 step and serving
+    ref_new = None                      # rank 0's updated parameters
     if rank == 0:
         torch.cuda.reset_peak_memory_stats(dev)
         whole = whole_params()
+        if noise:
+            init_noise = tree_leaves(whole)[noise_j].cpu().clone()
         t0 = time.perf_counter()
         new, _, m = make_train_step(cfg, opt)(
             whole, opt.init(whole), {k: v.long() for k, v in
@@ -3269,6 +3453,14 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape):
                         "step_s": time.perf_counter() - t0}
         ref_new = [t.cpu() for t in tree_leaves(new)]
         del new, m
+        if "train" in floors:
+            gc.collect()
+            torch.cuda.empty_cache()
+            ref["train_floor"], exact_train = train_floor(
+                cfg, opt, whole, {k: v.long() for k, v in
+                                  batches[0].items()}, ref, ref_new, noise_j)
+            ref["train64"] = {k: exact_train[k]
+                              for k in ("loss", "grad_norm")}
         logits, cache = make_prefill_step(cfg, cache_len, cfg.window)(
             whole, {"tokens": prompt})
         step = make_decode_step(cfg, cfg.window)
@@ -3283,7 +3475,11 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape):
                                   leaves_by_path(cache).items()
                                   if k != "pos"},
                         "pos": int(cache["pos"])}
-        del whole, logits, cache
+        del logits, cache
+        if "serve" in floors:
+            ref["floor"], exact_serve = serve_floor(cfg, whole, prompt, ref,
+                                                    cache_len)
+        del whole
         ref["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         gc.collect()
         torch.cuda.empty_cache()
@@ -3315,30 +3511,75 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape):
     coords = [dict(zip(mesh.axis_names, c)) for c in
               itertools.product(*map(range, mesh.shape.values()))]
 
-    def params_gap(new):
-        """The updated parameters' gap to the reference, as one vector:
-        rank 0 scatters each rank's slices of its host copy, host to host
-        through the staged group, and each rank sums on the host."""
+    def params_gap(new, source, mine_ref, dtype):
+        """The updated parameters' gap to a reference's, as one vector (the
+        ``noise`` leaf left out): rank 0 takes each leaf's host copy in
+        ``dtype`` from ``source(j)`` and scatters each rank's slices, host
+        to host through the staged group (kept in ``mine_ref`` where it is
+        a list), and each rank sums on the host."""
         num = den = 0.0
         for j, (got, sh) in enumerate(zip(tree_leaves(new),
                                           tree_leaves(p_sh))):
-            if len(mine_ref) <= j:
+            if mine_ref is None or len(mine_ref) <= j:
                 shape = tuple(got.shape)
-                mine = torch.empty(sh.shard_shape(shape), dtype=got.dtype)
+                mine = torch.empty(sh.shard_shape(shape), dtype=dtype)
                 parts = None
                 if rank == 0:
-                    parts = [ref_new[j][sh.local_slices(shape, c)]
-                             .contiguous() for c in coords]
+                    leaf = source(j).to(dtype)
+                    parts = [leaf[sh.local_slices(shape, c)].contiguous()
+                             for c in coords]
+                    del leaf
                 dist.scatter(mine, parts, src=0)
-                mine_ref.append(mine)
                 del parts
-            theirs = mine_ref[j].double()
+                if mine_ref is not None:
+                    mine_ref.append(mine)
+            else:
+                mine = mine_ref[j]
+            if j == noise_j:
+                continue
+            theirs = mine.double()
             d = got.to_local().cpu().double() - theirs
             num += float((d * d).sum())
             den += float((theirs * theirs).sum())
         sums = torch.tensor([num, den], dtype=torch.float64)
         dist.all_reduce(sums)
         return math.sqrt(float(sums[0]) / float(sums[1]))
+
+    def noise_leaf(new):
+        """The ``noise`` leaf after step 1 against the reference's, on
+        rank 0 (every rank gathers it): the residual of the other rows'
+        moves after the one scale that fits them best, relative to their
+        largest move; the largest entry gap over lr × sqrt(size); each
+        side's RMS move over lr.  Where rank 0 ran step 1 in float64,
+        also each side's residual against the float64 step's."""
+        got = tree_leaves(new)[noise_j].full_tensor().cpu().double()
+        if rank != 0:
+            return None
+        start = init_noise.double()
+        want = ref_new[noise_j].double()
+        rows = torch.ones(start.shape, dtype=torch.bool)
+        rows[:, noise[1]] = False
+
+        def fit(a, b):
+            """(the scale, the residual) of a's other rows' moves on b's."""
+            d_a, d_b = (a - start)[rows], (b - start)[rows]
+            scale = float((d_a * d_b).sum() / (d_b * d_b).sum())
+            return scale, float((d_a - scale * d_b).abs().max()
+                                / d_b.abs().max())
+        scale, residual = fit(got, want)
+        out = {"leaf": noise[0], "scale": scale,
+               "other_rows_residual": residual,
+               "entry_gap_over_bound": float(
+                   (got - want).abs().max() / (SPMD_LR
+                                               * math.sqrt(got.numel()))),
+               "rms_move_over_lr": [float((x - start).square().mean()
+                                          .sqrt()) / SPMD_LR
+                                    for x in (got, want)]}
+        if exact_train is not None:
+            exact = want + exact_train["delta"][noise_j].double()
+            out["other_rows_residual64"] = [fit(x, exact)[1]
+                                            for x in (got, want)]
+        return out
 
     # the staged bytes of the Mamba2 blocks' split of the sharded in_proj
     # output (DTensor gathers the projection before it splits)
@@ -3382,7 +3623,14 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape):
                     / 1e9
                 out["peak_reserved_gb"] = \
                     torch.cuda.max_memory_reserved(dev) / 1e9
-                out["params_rel_gap"] = params_gap(params)
+                out["params_rel_gap"] = params_gap(
+                    params, lambda j: ref_new[j], mine_ref, torch.float32)
+                if "train" in floors:
+                    out["params_gap64"] = params_gap(
+                        params, lambda j: ref_new[j].double()
+                        + exact_train["delta"][j].double(), None,
+                        torch.float64)
+                out["noise_leaf"] = noise_leaf(params) if noise else None
         del params, state
         gc.collect()
         torch.cuda.empty_cache()
@@ -3395,6 +3643,9 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape):
                 for label, (set_name, n) in rule_sets.items()}
     finally:
         ssm._split_proj = split_proj
+    ref_new = exact_train = None        # step 1's references, on the host
+    mine_ref.clear()
+    gc.collect()
 
     # serving on the same weights: the sharded prefill into a cache placed
     # by cache_shardings of the decode shape, then greedy decode steps
@@ -3449,6 +3700,9 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape):
     serve["decode_placements"] = {k: v for k, v in placements(cache).items()
                                   if k != "pos"}
     serve["pos"] = int(cache["pos"].full_tensor())
+    serve["matrix_memory_bytes"] = sum(
+        v.to_local().numel() * v.to_local().element_size()
+        for k, v in leaves_by_path(cache).items() if k.endswith("/C"))
 
     def shard(d):
         from torch.distributed.tensor._utils import (
@@ -3461,6 +3715,12 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape):
                              leaves_by_path(cache).items() if k != "pos"}
     if rank == 0:
         serve["logits"] = got_logits
+    if "serve" in floors:
+        serve.update(cache_to_exact(cache, c_sh, exact_serve, coords, rank))
+        if rank == 0:
+            serve["logit_gaps64"] = [
+                float(np.abs(g - w).max() / np.abs(w).max())
+                for g, w in zip(got_logits, exact_serve["logits"])]
     del params, cache, logits, full
     gc.collect()
     torch.cuda.empty_cache()
@@ -3489,6 +3749,16 @@ def spmd_hybrid_rank(rank, dev):
          SPMD_NEW))
 
 
+def spmd_xlstm_rank(rank, dev):
+    """One rank of the spmd-xlstm phase (see :func:`run_spmd_xlstm_path`)."""
+    return spmd_lm_rank(
+        rank, dev, spmd_xlstm_cfg(), (XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ),
+        {"default": (None, SPMD_XLSTM_STEPS)},
+        (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW),
+        noise=(SPMD_XLSTM_NOISE_LEAF, SPMD_XLSTM_NOISE_ROW),
+        floors=("serve",))
+
+
 def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
     """Runs ``rank_fn`` (a :func:`spmd_lm_rank`) on the 4 ranks of a ``(2,
     2)`` ``("data", "model")`` process mesh, each on this card, joined by
@@ -3499,7 +3769,10 @@ def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
     step; the served logits within SPMD_LOGIT_GAP of max |logit| at every
     step, the greedy tokens equal, every shard of the final cache equal to
     the unsharded cache's slice (rel SPMD_CACHE_GAP) and placed by
-    ``cache_shardings`` after the prefill and after the last step.  Prints
+    ``cache_shardings`` after the prefill and after the last step; where
+    rank 0 served in float64 too, a served number that misses its limit
+    passes :func:`within` the fp32 floor, each cache leaf group by group.
+    Prints
     the records (step seconds, each rank's peak, each step's collectives
     and staged bytes, prefill seconds, decode ms a step) as
     ``<label> path: {...}``.  Returns the ranks' summed launch counts."""
@@ -3534,7 +3807,7 @@ def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
             fails.append(f"rank {r['rank']}: argument bytes "
                          f"{r['argument_bytes']} vs "
                          f"{r['argument_bytes_want']}")
-    gaps = {}
+    gaps, gaps64 = {}, {}
     for rules, run in ranks[0]["train"].items():
         if not all(math.isfinite(x) for x in run["losses"]):
             fails.append(f"{rules}: non-finite loss {run['losses']}")
@@ -3544,20 +3817,46 @@ def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
             "grad_norm": abs(run["grad_norms"][0] - ref["train"]["grad_norm"])
             / ref["train"]["grad_norm"],
             "params": run["params_rel_gap"]}
+        floors = ref.get("train_floor") or {}
+        if floors:
+            gaps64[rules] = {
+                "loss": abs(run["losses"][0] - ref["train64"]["loss"])
+                / ref["train64"]["loss"],
+                "grad_norm": abs(run["grad_norms"][0]
+                                 - ref["train64"]["grad_norm"])
+                / ref["train64"]["grad_norm"],
+                "params": run["params_gap64"]}
         if not max(gaps[rules].values()) <= SPMD_GAP:
             fails.append(f"{rules}: step 1 against the unsharded step "
-                         f"{gaps[rules]} (limit {SPMD_GAP})")
+                         f"{gaps[rules]} (limit {SPMD_GAP}; float64: "
+                         f"{gaps64.get(rules)}, floor {floors})")
+        nz = run["noise_leaf"]
+        if nz is not None and not (
+                nz["entry_gap_over_bound"] <= 1.0
+                and nz["other_rows_residual"] <= SPMD_NOISE_RESIDUAL
+                and all(0.0 < x <= 1.0 + 1e-5
+                        for x in nz["rms_move_over_lr"])):
+            fails.append(f"{rules}: {nz['leaf']} after step 1 {nz} (limits: "
+                         f"entries within lr x sqrt(size), the other rows' "
+                         f"residual {SPMD_NOISE_RESIDUAL}, each side's RMS "
+                         f"move above 0 and at most lr)")
     serve = ranks[0]["serve"]
     want_logits = ref["serve"]["logits"]
     logit_gaps = [float(np.abs(g - w).max() / np.abs(w).max())
                   for g, w in zip(serve["logits"], want_logits)]
-    if len(logit_gaps) != serve_shape[3] + 1 or \
-            not max(logit_gaps) <= SPMD_LOGIT_GAP:
-        fails.append(f"served logits: {logit_gaps} (limit {SPMD_LOGIT_GAP})")
+    s_floor = ref.get("floor") or {"logits": [None] * len(logit_gaps),
+                                   "cache": {}}
+    logit_gaps64 = serve.get("logit_gaps64") or [None] * len(logit_gaps)
+    if len(logit_gaps) != serve_shape[3] + 1 or not all(
+            within(SPMD_LOGIT_GAP, *x) for x in
+            zip(logit_gaps, s_floor["logits"], logit_gaps64)):
+        fails.append(f"served logits: {logit_gaps} (limit {SPMD_LOGIT_GAP};"
+                     f" float64: {logit_gaps64}, floor "
+                     f"{s_floor['logits']})")
     if serve["tokens"] != ref["serve"]["tokens"]:
         fails.append(f"greedy tokens {serve['tokens']} vs "
                      f"{ref['serve']['tokens']}")
-    cache_gaps = {}
+    cache_gaps, group_gaps = {}, {}
     for r in ranks:
         s = r["serve"]
         if not (s["cache_placements"] == s["decode_placements"]
@@ -3578,7 +3877,26 @@ def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
                        zip(got["offset"], got["values"].shape))
             cache_gaps[k] = max(cache_gaps.get(k, 0.0), float(
                 np.abs(got["values"] - w[sl]).max() / np.abs(w).max()))
-    if not max(cache_gaps.values(), default=math.inf) <= SPMD_CACHE_GAP:
+            group_gaps[k] = [max(old, float(np.abs(a - b).max() / np.abs(
+                wg).max())) for old, a, b, wg in zip(
+                    group_gaps.get(k, [0.0] * w.shape[0]), got["values"],
+                    w[sl], w)]
+    # where the floor was measured, each leaf group by group (the floor
+    # grows with depth) and against float64 too; else each leaf whole
+    cache_gaps64 = {}
+    if s_floor["cache"]:
+        norms = ranks[0]["serve"]["cache_norms64"]
+        cache_gaps64 = {k: [max(r["serve"]["cache_abs64"][k][g]
+                                for r in ranks) / n
+                            for g, n in enumerate(norms[k])]
+                        for k in norms}
+        if set(cache_gaps64) != set(group_gaps) or not all(
+                within(SPMD_CACHE_GAP, *x) for k, gg in group_gaps.items()
+                for x in zip(gg, s_floor["cache"][k], cache_gaps64[k])):
+            fails.append(f"cache shards by group: {group_gaps} (limit "
+                         f"{SPMD_CACHE_GAP}; float64: {cache_gaps64}, floor "
+                         f"{s_floor['cache']})")
+    elif not max(cache_gaps.values(), default=math.inf) <= SPMD_CACHE_GAP:
         fails.append(f"cache shards: {cache_gaps} (limit {SPMD_CACHE_GAP})")
     launches = {n: sum(r["launches"][n] for r in ranks) for n in
                 ranks[0]["launches"]}
@@ -3598,6 +3916,10 @@ def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
                            "peak_reserved_gb", "params_rel_gap")}
                   for rules, run in ranks[0]["train"].items()},
         "rel_gaps": gaps, "limit": SPMD_GAP,
+        "train_floor": ref.get("train_floor"), "rel_gaps64": gaps64,
+        "noise_leaf": {rules: run["noise_leaf"]
+                       for rules, run in ranks[0]["train"].items()
+                       if run["noise_leaf"] is not None},
         "collectives_rank_0": {f"{rules}_step_{i + 1}": step
                                for rules, run in ranks[0]["train"].items()
                                for i, step in enumerate(run["steps"])},
@@ -3612,11 +3934,16 @@ def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
                   "decode_ms": serve["decode_ms"],
                   "decode_collectives_rank_0": serve["decode_collectives"],
                   "decode_staged_rank_0": serve["decode_staged"],
+                  "matrix_memory_bytes_rank_0": serve["matrix_memory_bytes"],
                   "peak_mem_gb_by_rank": [r["serve"]["peak_mem_gb"]
                                           for r in ranks],
                   "max_logit_gap": max(logit_gaps), "limit": SPMD_LOGIT_GAP,
+                  "logit_gaps": logit_gaps, "logit_gaps64": logit_gaps64,
+                  "cache_shard_gaps64_by_group": cache_gaps64,
                   "tokens_equal": serve["tokens"] == ref["serve"]["tokens"],
                   "cache_shard_gaps": cache_gaps,
+                  "cache_shard_gaps_by_group": group_gaps,
+                  "fp32_floor": ref.get("floor"),
                   "cache_placements": serve["cache_placements"]},
         "wall_s": wall, "launches": launches, "failed": fails}
     print(f"{label} path: " + json.dumps(report))
@@ -3666,6 +3993,34 @@ def run_spmd_hybrid_path(dev):
         (SPMD_HYBRID_BATCH, SPMD_HYBRID_SEQ),
         (SPMD_SERVE_BATCH, SPMD_HYBRID_PROMPT, SPMD_HYBRID_CACHE_LEN,
          SPMD_NEW), f"{SPMD_HYBRID_LAYERS} of 81 layers; full width")
+
+
+def run_spmd_xlstm_path(dev):
+    """xlstm-1.3b at full width (d_model 2048, 4 heads; seed 0, fp32), cut
+    to SPMD_XLSTM_LAYERS of its 48 layers (its groups are of 7 mLSTM
+    blocks and one sLSTM block), on the ``(2, 2)`` ``("data", "model")``
+    process mesh of :func:`run_spmd_moe_path`.  Trains SPMD_XLSTM_STEPS
+    Adafactor steps of ``build_jitted``'s step on batches
+    XLSTM_TRAIN_BATCH × XLSTM_TRAIN_SEQ under the default rules, the
+    mLSTM's parallel form and the sLSTM's time loop on each rank's rows
+    and heads; then serves on the same weights: the sharded prefill of a
+    SPMD_PROMPT-token prompt at batch SPMD_SERVE_BATCH into a
+    SPMD_CACHE_LEN-slot cache (the matrix memory ``C`` with its key axis
+    on ``model``), and SPMD_NEW greedy decode steps, which leave ``C``
+    where the cache holds it.  The gates and records are
+    :func:`run_spmd_lm_path`'s, with the served numbers' fp32 floor
+    measured against float64 on rank 0 (``floors``); the sLSTM bias, whose
+    step-1 update rounding decides (SPMD_XLSTM_NOISE_LEAF), is held on its
+    own; the records add the bytes of ``C`` a rank holds beside the bytes
+    a decode step stages.  Returns the ranks' summed launch counts (no
+    codec: all 0)."""
+    cfg = spmd_xlstm_cfg()
+    return run_spmd_lm_path(
+        dev, "spmd-xlstm", spmd_xlstm_rank,
+        (XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ),
+        (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW),
+        "full width and depth" if cfg.n_layers == 48 else
+        f"{cfg.n_layers} of 48 layers; full width")
 
 
 # =============================================== analysis, checks, dry run ==
@@ -3984,6 +4339,7 @@ def main() -> int:
     paths["train spmd"] = run_spmd_path(dev)
     paths["spmd moe"] = run_spmd_moe_path(dev)
     paths["spmd hybrid"] = run_spmd_hybrid_path(dev)
+    paths["spmd xlstm"] = run_spmd_xlstm_path(dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on its path: "

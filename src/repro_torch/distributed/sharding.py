@@ -382,6 +382,90 @@ def on_shards(fn, out_placements, *args, in_grad_placements=None):
                      device_mesh=mesh)(*args)
 
 
+def rows_and_heads(t: torch.Tensor, head_dim: int) -> Tuple[Optional[str],
+                                                            ...]:
+    """What each mesh axis shards of the DTensor ``t``: ``"rows"`` (its
+    batch, dimension 0), ``"heads"`` (dimension ``head_dim``) or nothing
+    (``None``)."""
+    from torch.distributed.tensor import Shard
+    return tuple("rows" if pl == Shard(0) else
+                 "heads" if pl == Shard(head_dim) else None
+                 for pl in t.placements)
+
+
+def rows_and_heads_of(device_mesh, batch: int, heads: Optional[int]
+                      ) -> Tuple[Optional[str], ...]:
+    """:func:`rows_and_heads` by the current rules: the mesh axes of the
+    logical ``"batch"`` shard the rows where they divide ``batch``, the
+    axis of ``"heads"`` shards the heads where it divides ``heads`` (no
+    axis does for ``None``), and the others shard nothing."""
+    _, rules = _current()
+    batch_axes, head_axes = _axes(rules.get("batch")), _axes(
+        rules.get("heads"))
+    out, rows = [], 1
+    for name, size in zip(device_mesh.mesh_dim_names, device_mesh.shape):
+        if name in batch_axes and batch % (rows * size) == 0:
+            rows *= size
+            out.append("rows")
+        elif name in head_axes and heads is not None and heads % size == 0:
+            out.append("heads")
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def settled(t: torch.Tensor) -> torch.Tensor:
+    """The DTensor ``t`` with its ``Partial`` placements summed
+    (``Replicate``): the backward of a redistribution from ``Partial``
+    straight to ``Shard`` would go from ``Shard`` to ``Partial``, which
+    DTensor in torch 2.11 does not support (from ``Replicate`` it keeps
+    the gradient replicated)."""
+    from torch.distributed.tensor import Replicate
+    if not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in t.placements])
+
+
+def pinned(t: torch.Tensor) -> torch.Tensor:
+    """The DTensor ``t`` as it is, with the gradient of this use of it
+    delivered in ``t``'s own placements (an identity ``on_shards``).
+    Autograd leaves a gradient where the backward put it, often
+    ``Partial``; where two uses of a tensor meet in its backward, DTensor
+    in torch 2.11 may then add a ``Partial`` gradient to a sharded one by
+    redistributing the sharded one to ``Partial``, which it cannot."""
+    return on_shards(lambda a: a, list(t.placements), t)
+
+
+def on_rows_and_heads(fn, axes, args, specs, out_specs):
+    """``fn(*args)`` on each rank's batch rows and heads, as
+    :func:`rows_and_heads` names the mesh axes.  ``specs`` (one per
+    argument) and ``out_specs`` (one per result; ``fn`` returns a tuple
+    of several, or one tensor) are (whether dimension 0 is the batch, the
+    heads' dimension or ``None``); every DTensor
+    argument is placed so, and ``None`` passes through.  A rank's gradient
+    of an argument without rows (a weight) covers only its rows, and of
+    one without heads only its heads: ``Partial`` on that axis."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    def placed(rows, head):
+        return [Shard(0) if a == "rows" and rows else
+                Shard(head) if a == "heads" and head is not None else
+                Replicate() for a in axes]
+
+    def grad(rows, head):
+        return [Partial() if (a == "rows" and not rows)
+                or (a == "heads" and head is None) else pl
+                for a, pl in zip(axes, placed(rows, head))]
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    args = [a if a is None else settled(a).redistribute(mesh, placed(*sp))
+            for a, sp in zip(args, specs)]
+    outs = [placed(*sp) for sp in out_specs]
+    return on_shards(fn, outs[0] if len(outs) == 1 else tuple(outs), *args,
+                     in_grad_placements=[None if a is None else grad(*sp)
+                                         for a, sp in zip(args, specs)])
+
+
 def local_offset(global_shape: Sequence[int], device_mesh, placements,
                  dim: int) -> Tuple[int, int]:
     """(start, length) along ``dim`` of this rank's shard of a tensor of

@@ -7,7 +7,7 @@ steps call the model's ``prefill`` / ``decode_step`` eagerly: ``encdec``'s
 for the encoder-decoder, ``causal_lm``'s for every other family (the
 hybrid and xLSTM included: they are served this way, never
 stage-sharded).  On a process mesh the same steps run on DTensors placed by
-those shardings (the dense, vlm, moe and hybrid families).
+those shardings (every family but the encoder-decoder).
 
 The abstract inputs (:func:`input_specs`, :func:`decode_state_specs`,
 :func:`abstract_params`) are tensors on the ``meta`` device, in the JAX
@@ -259,7 +259,7 @@ def _placed_step(step: Callable, in_sh: tuple, out_sh: tuple) -> Callable:
 
 # the families a process mesh does not run yet, by the ROADMAP slice that
 # brings each
-_NOT_ON_PROCESSES = {"xlstm": "Q1.6d", "encdec": "Q1.6e"}
+_NOT_ON_PROCESSES = {"encdec": "Q1.6e"}
 
 
 def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
@@ -289,13 +289,13 @@ def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
     ``meta["cache_sh"]``; the logits and metrics stay where the step left
     them); a plain tensor among the arguments raises.  Run it under
     ``use_mesh(mesh)`` for the model's ``constrain`` calls, as the JAX
-    package's callers do.  The dense, vlm, moe and hybrid families run
-    there (the moe family with ``moe_impl="capacity"``); the xLSTM and
-    encoder-decoder families raise ``NotImplementedError`` (ROADMAP Q1.6d
-    and Q1.6e), as do the ragged and loop dispatches (Q1.6f).  A mesh of
-    devices in one process whose positions hold several distinct devices
-    raises ``NotImplementedError``: placing shards across them needs the
-    process mesh."""
+    package's callers do.  The dense, vlm, moe, hybrid and xLSTM families
+    run there (the moe family with ``moe_impl="capacity"``); the
+    encoder-decoder family raises ``NotImplementedError`` (ROADMAP Q1.6e),
+    as do the ragged and loop dispatches (Q1.6f).  A mesh of devices in
+    one process whose positions hold several distinct devices raises
+    ``NotImplementedError``: placing shards across them needs the process
+    mesh."""
     del remat
     if mesh.is_process_mesh and cfg.family in _NOT_ON_PROCESSES:
         raise NotImplementedError(

@@ -27,7 +27,12 @@ Entry points:
   ``count_params``  analytic parameter count
 
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode`` (under
-``torch.no_grad`` on DTensors).  The
+``torch.no_grad`` on DTensors).  On a process mesh every family here runs
+on DTensors, with the JAX package's ``constrain`` calls where it has
+them (after each block or group in ``forward``, on the rows between a
+prefill's blocks, none between a decode step's); what a block computes
+on each rank's own rows and heads (attention, the SSD, the mLSTM's
+parallel form and the sLSTM's time loop) is in its module.  The
 cache's ``pos`` is a 0-d int32 tensor on the cache's device, as in JAX, so
 a decode step reads nothing back to the host.  The serving stages
 (:mod:`repro_torch.serving.stages`) run the same per-segment loops
@@ -375,25 +380,25 @@ def _mamba_block_decode(cfg, p, x_t, st):
 
 
 def _mlstm_block(cfg, p, x):
-    return x + xl.mlstm_block(p["mlstm"], norm_apply(cfg.norm, p["ln"], x),
+    return x + xl.mlstm_block(p["mlstm"], xl.block_norm(cfg.norm, p["ln"], x),
                               _xlstm_cfg(cfg))
 
 
 def _mlstm_block_prefill(cfg, p, x):
-    h = norm_apply(cfg.norm, p["ln"], x)
+    h = xl.block_norm(cfg.norm, p["ln"], x)
     y, st = xl.mlstm_prefill(p["mlstm"], h, _xlstm_cfg(cfg))
     return x + y, st._asdict()
 
 
 def _mlstm_block_decode(cfg, p, x_t, st):
-    h = norm_apply(cfg.norm, p["ln"], x_t)
+    h = xl.block_norm(cfg.norm, p["ln"], x_t)
     y, st = xl.mlstm_decode_step(p["mlstm"], h, xl.MLSTMState(**st),
                                  _xlstm_cfg(cfg))
     return x_t + y, st._asdict()
 
 
 def _slstm_block(cfg, p, x):
-    return x + xl.slstm_block(p["slstm"], norm_apply(cfg.norm, p["ln"], x),
+    return x + xl.slstm_block(p["slstm"], xl.block_norm(cfg.norm, p["ln"], x),
                               _xlstm_cfg(cfg))
 
 
@@ -401,13 +406,13 @@ def _slstm_block_prefill(cfg, p, x):
     """The sLSTM block over the prompt, written out as in the JAX package's
     prefill (norm, the cell scan, the FFN, the residual), with the state
     after the last step."""
-    h = norm_apply(cfg.norm, p["ln"], x)
+    h = xl.block_norm(cfg.norm, p["ln"], x)
     y, st = xl.slstm_seq(p["slstm"], h, _xlstm_cfg(cfg))
     return x + xl.slstm_block_ffn(p["slstm"], y), st._asdict()
 
 
 def _slstm_block_decode(cfg, p, x_t, st):
-    h = norm_apply(cfg.norm, p["ln"], x_t)
+    h = xl.block_norm(cfg.norm, p["ln"], x_t)
     y, st = xl.slstm_decode_step(p["slstm"], h, xl.SLSTMState(**st),
                                  _xlstm_cfg(cfg))
     return x_t + y, st._asdict()

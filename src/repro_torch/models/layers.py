@@ -99,30 +99,47 @@ def embed(p: Params, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
 
 
 def _embed_sharded(table, tokens):
-    """The lookup on a DTensor table, each rank on its tokens: the table's
+    """The lookup on a DTensor table, each rank on its tokens.  Where the
+    table's rows and the tokens are sharded on one mesh axis, the tokens
+    are gathered there instead of the table: each rank looks the tokens up
+    in its rows (zeros elsewhere), the sum of those lookups (exact: one
+    rank holds each row) is cut back as the tokens were, and the table's
+    gradient there is each rank's own rows.  On the other axes the table's
     rows are gathered where they are sharded (and its columns where the
     tokens are sharded on the same mesh axis), the columns stay sharded
-    elsewhere.  A rank's rows of the table's gradient cover only its
-    tokens, so the gradient is ``Partial`` on the axes that shard the
-    tokens and the sums meet where the optimizer places it."""
+    elsewhere, and a rank's rows of the table's gradient cover only its
+    tokens: ``Partial`` on the axes that shard the tokens, the sums
+    meeting where the optimizer places it."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
+    from repro_torch.distributed.sharding import local_offset, settled
     mesh = table.device_mesh
-    t_pl, tok_pl, out_pl, grad_pl = [], [], [], []
+    t_pl, tok_pl, look_pl, out_pl, grad_pl = [], [], [], [], []
     for tp, kp in zip(table.placements, tokens.placements):
         by_tokens = isinstance(kp, Shard)
+        vocab = by_tokens and tp == Shard(0)
         cols = isinstance(tp, Shard) and tp.dim == 1 and not by_tokens
-        t_pl.append(Shard(1) if cols else Replicate())
-        tok_pl.append(kp if by_tokens else Replicate())
+        t_pl.append(tp if vocab else Shard(1) if cols else Replicate())
+        tok_pl.append(kp if by_tokens and not vocab else Replicate())
         out_pl.append(kp if by_tokens else
                       Shard(tokens.dim()) if cols else Replicate())
-        grad_pl.append(Partial() if by_tokens else t_pl[-1])
+        look_pl.append(Partial() if vocab else out_pl[-1])
+        grad_pl.append(tp if vocab else
+                       Partial() if by_tokens else t_pl[-1])
     table = table.redistribute(mesh, t_pl)
-    tokens = tokens.redistribute(mesh, tok_pl)
-    return local_map(lambda t, k: t[k.to(torch.int64)],
-                     out_placements=out_pl, in_placements=(t_pl, tok_pl),
-                     in_grad_placements=(grad_pl, tok_pl),
-                     device_mesh=mesh)(table, tokens)
+    start, n = local_offset(table.shape, mesh, t_pl, 0)
+
+    def look_up(t, k):
+        k = k.to(torch.int64) - start
+        mine = (k >= 0) & (k < n)
+        rows = t[k.clamp(0, max(n - 1, 0))]
+        return torch.where(mine[..., None], rows, rows.new_zeros(()))
+    out = local_map(look_up, out_placements=look_pl,
+                    in_placements=(t_pl, tok_pl),
+                    in_grad_placements=(grad_pl, tok_pl),
+                    device_mesh=mesh)(table, tokens.redistribute(mesh,
+                                                                 tok_pl))
+    return settled(out).redistribute(mesh, out_pl)
 
 
 # -------------------------------------------------------------------- RoPE --

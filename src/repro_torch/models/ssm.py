@@ -32,7 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
-from repro_torch.distributed.sharding import constrain, is_dtensor, on_shards
+from repro_torch.distributed.sharding import (constrain, is_dtensor,
+                                              on_rows_and_heads, on_shards,
+                                              rows_and_heads)
 from .layers import (causal_conv1d, causal_conv1d_init, causal_conv1d_step,
                      dense_init, init_device, rmsnorm, rmsnorm_init)
 
@@ -142,8 +144,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if is_dtensor(xc):
         # what follows is independent across batch rows and heads: each
         # rank computes its share as one device would
-        axes = _rows_and_heads(xc, head_dim=3)
-        return _on_rows_and_heads(
+        axes = rows_and_heads(xc, head_dim=3)
+        return on_rows_and_heads(
             _ssd_from_decay, axes, args,
             ((True, 3), (True, 3), (True, 3), (True, 2), (True, None),
              (True, None), (True, 2), (False, 0), (True, 1)),
@@ -188,43 +190,6 @@ def _ssd_from_decay(xc, dtc, log_a, decay, Bc, Cc, x, D, h0):
     y = (Y_intra.to(torch.float32) + Y_inter).reshape(Bsz, S, nh, hd)
     y = y.to(x.dtype) + x * D[None, None, :, None].to(x.dtype)
     return y, h
-
-
-def _rows_and_heads(t: torch.Tensor, head_dim: int) -> Tuple[Any, ...]:
-    """What each mesh axis shards of the DTensor ``t``: ``"rows"`` (its
-    batch, dimension 0), ``"heads"`` (dimension ``head_dim``) or nothing
-    (``None``)."""
-    from torch.distributed.tensor import Shard
-    return tuple("rows" if pl == Shard(0) else
-                 "heads" if pl == Shard(head_dim) else None
-                 for pl in t.placements)
-
-
-def _on_rows_and_heads(fn, axes, args, specs, out_specs):
-    """``fn(*args)`` on each rank's batch rows and SSM heads, as
-    :func:`_rows_and_heads` names the mesh axes.  ``specs`` (one per
-    argument) and ``out_specs`` (one per result) are (whether dimension 0
-    is the batch, the heads' dimension or ``None``); every DTensor
-    argument is placed so, and ``None`` passes through.  A rank's gradient
-    of an argument without rows (D) covers only its rows, and of one
-    without heads (B, C) only its heads: ``Partial`` on that axis."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-
-    def placed(rows, head):
-        return [Shard(0) if a == "rows" and rows else
-                Shard(head) if a == "heads" and head is not None else
-                Replicate() for a in axes]
-
-    def grad(rows, head):
-        return [Partial() if (a == "rows" and not rows)
-                or (a == "heads" and head is None) else pl
-                for a, pl in zip(axes, placed(rows, head))]
-    mesh = next(a.device_mesh for a in args if is_dtensor(a))
-    args = [a if a is None else a.redistribute(mesh, placed(*sp))
-            for a, sp in zip(args, specs)]
-    return on_shards(fn, tuple(placed(*sp) for sp in out_specs), *args,
-                     in_grad_placements=[None if a is None else grad(*sp)
-                                         for a, sp in zip(args, specs)])
 
 
 def _ssm_inputs(p, cfg: MambaCfg, conv_out: torch.Tensor, dt: torch.Tensor):
@@ -286,8 +251,8 @@ def mamba_decode_step(p, x_t: torch.Tensor, state: MambaState,
     xh = xi.reshape(B, cfg.n_heads, cfg.head_dim)
     args = (dt, Bc, Cc, xh, state.h, p["A_log"], p["D"])
     if is_dtensor(state.h):            # each rank on its rows and heads
-        y, h = _on_rows_and_heads(
-            _state_update, _rows_and_heads(state.h, head_dim=1), args,
+        y, h = on_rows_and_heads(
+            _state_update, rows_and_heads(state.h, head_dim=1), args,
             ((True, 1), (True, None), (True, None), (True, 1), (True, 1),
              (False, 0), (False, 0)), ((True, 1), (True, 1)))
     else:

@@ -18,6 +18,21 @@ sLSTM = post-up-projection block with a gated FFN (×4/3).  ``d_ff = 0`` in
 the xlstm-1.3b config means exactly this: FFN capacity lives inside the
 blocks.  The reference has no Pallas kernel here (plain ``jnp``), so
 neither has the port.
+
+On a process mesh the blocks run on DTensors.  The dense projections
+and the conv (``layers.causal_conv1d``) are DTensor ops, the norms run on
+each rank's batch rows (:func:`block_norm`), and what is independent
+across batch rows and heads runs on each rank's own rows (the
+``"batch"`` axes) and heads (``"heads"``) through
+``sharding.on_rows_and_heads``, every placement stated: the per-head
+projections, the mLSTM's parallel form and its final-state sums, and the
+sLSTM's whole time loop, its weights and pre-activations redistributed
+once a call, so that no collective falls inside the loop.  A decode
+step moves its token, not the weights (:func:`_mm`,
+:func:`_per_head_on_weight_shards`), and keeps the matrix memory ``C``
+where the cache holds it (each rank's rows and slice of the key axis):
+its update is elementwise there, and only the read-outs ``C·q`` and
+``n·q``, partial sums over the key axis, are reduced.
 """
 from __future__ import annotations
 
@@ -28,9 +43,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
+from repro_torch.distributed.sharding import (is_dtensor, on_rows_and_heads,
+                                              on_shards, pinned,
+                                              rows_and_heads,
+                                              rows_and_heads_of, settled)
 from .layers import (causal_conv1d, causal_conv1d_init, causal_conv1d_step,
-                     dense_init, init_device, layernorm, layernorm_init,
-                     rmsnorm, rmsnorm_init)
+                     dense_init, init_device, layernorm_init, norm_apply,
+                     rmsnorm_init)
 
 
 class XLSTMCfg(NamedTuple):
@@ -90,8 +109,61 @@ def mlstm_init(gen: torch.Generator, cfg: XLSTMCfg,
     }
 
 
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w; on DTensors with x's gradient delivered in x's placements
+    (``sharding.pinned``), so that where two uses of x meet in the
+    backward, no ``Partial`` gradient meets a sharded one.  A decode
+    step's token (x of 2 dimensions: (B, d), where a sequence is (B, S,
+    d)) is cut as w's input axis is and laid beside its output axis, the
+    sums ``Partial`` where the input axis is cut: it moves the token's
+    bytes, not the weight."""
+    w = w.to(x.dtype)
+    if not is_dtensor(x):
+        return x @ w
+    if x.dim() != 2:
+        return pinned(x) @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x_pl = [Shard(1) if pl == Shard(0) else Replicate()
+            for pl in w.placements]
+    out_pl = [Partial() if pl == Shard(0) else
+              Shard(1) if pl == Shard(1) else Replicate()
+              for pl in w.placements]
+    return on_shards(torch.matmul, out_pl,
+                     settled(x).redistribute(x.device_mesh, x_pl), w)
+
+
+def block_norm(kind: str, p, x: torch.Tensor) -> torch.Tensor:
+    """``layers.norm_apply``; on DTensors on each rank's batch rows with
+    the normalized axis whole, as one device computes it (the norm's
+    parameters replicated, their gradients ``Partial`` on the rows'
+    axes).  DTensor would otherwise reduce over a sharded feature axis and
+    leave ``Partial`` gradients inside the norm's backward."""
+    if not is_dtensor(x):
+        return norm_apply(kind, p, x)
+    keys = sorted(p)
+    axes = rows_and_heads_of(x.device_mesh, x.shape[0], None)
+    return on_rows_and_heads(
+        lambda h, *w: norm_apply(kind, dict(zip(keys, w)), h), axes,
+        (x, *(p[k] for k in keys)),
+        ((True, None),) + ((False, None),) * len(keys), ((True, None),))
+
+
+def _by_rows_and_heads(fn, args, specs, out_specs):
+    """``fn(*args)`` on each rank's batch rows and heads of DTensor
+    arguments (``sharding.on_rows_and_heads``), the heads being the
+    dimension ``specs[0]`` names of the first argument."""
+    x = args[0]
+    axes = rows_and_heads_of(x.device_mesh, x.shape[0], x.shape[specs[0][1]])
+    return on_rows_and_heads(fn, axes, args, specs, out_specs)
+
+
 def _mlstm_parallel(q, k, v, i_pre, f_pre):
-    """q/k/v: (B,S,nh,hd); i_pre/f_pre: (B,S,nh).  Stabilized parallel form."""
+    """q/k/v: (B,S,nh,hd); i_pre/f_pre: (B,S,nh).  Stabilized parallel form.
+    On DTensors each rank runs it on its batch rows and heads: the causal
+    mask, the cumulative log forget gates and the stabilizer are its own."""
+    if is_dtensor(q):
+        return _by_rows_and_heads(_mlstm_parallel, (q, k, v, i_pre, f_pre),
+                                  ((True, 2),) * 5, ((True, 2),))
     B, S, nh, hd = q.shape
     logf = F.logsigmoid(f_pre.to(torch.float32))                # (B,S,nh)
     cum = torch.cumsum(logf, dim=1)
@@ -113,27 +185,61 @@ def _mlstm_parallel(q, k, v, i_pre, f_pre):
     return y / denom[..., None].to(v.dtype)
 
 
+def _per_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The block-diagonal projection: x (B, [S,] nh, hd) by w (nh, hd, hd),
+    head by head.  On DTensors each rank projects its rows and heads (a
+    rank's gradient of w covers only its rows): the einsum's backward
+    would otherwise flatten the heads with the sharded head_dim, which
+    DTensor refuses in torch 2.11."""
+    if is_dtensor(x) and x.dim() == 3:
+        return _per_head_on_weight_shards(x, w)
+    if is_dtensor(x):
+        return _by_rows_and_heads(_per_head, (x, w),
+                                  ((True, 2), (False, 0)), ((True, 2),))
+    eq = "bsnd,nde->bsne" if x.dim() == 4 else "bnd,nde->bne"
+    return torch.einsum(eq, x, w)
+
+
+def _per_head_on_weight_shards(x: torch.Tensor, w: torch.Tensor
+                               ) -> torch.Tensor:
+    """:func:`_per_head` of one token, x (B, nh, hd), with w left where it
+    lies: x is cut as w's input axis is (summed into ``Partial`` on that
+    mesh axis) and laid beside w's heads and output axis.  A decode step
+    moves a token's few bytes, not the layer's weights."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x_pl, out_pl = [], []
+    for pl in w.placements:
+        d = pl.dim if isinstance(pl, Shard) else None
+        x_pl.append(Shard(d + 1) if d in (0, 1) else Replicate())
+        out_pl.append(Partial() if d == 1 else Shard(1) if d == 0 else
+                      Shard(2) if d == 2 else Replicate())
+    x = settled(x).redistribute(x.device_mesh, x_pl)
+    return on_shards(_per_head, out_pl, x, w)
+
+
 def _mlstm_inputs(p, x: torch.Tensor, cfg: XLSTMCfg):
     """The up-projection, conv and gate pre-activations of a sequence:
     (xm, z, q, k, v, i_pre, f_pre)."""
     B, S, _ = x.shape
     nh, hd = cfg.n_heads, cfg.head_dim_m
-    up = x @ p["up"]["w"].to(x.dtype)
+    up = _mm(x, p["up"]["w"])
+    sharded = is_dtensor(up)
+    if sharded:                       # xm's two uses give replicated grads
+        up = settled(up)
     xm, z = up.chunk(2, dim=-1)
     xc = F.silu(causal_conv1d(p["conv"], xm))
     xch = xc.reshape(B, S, nh, hd)
-    q = torch.einsum("bsnd,nde->bsne", xch, p["wq"].to(x.dtype))
-    k = torch.einsum("bsnd,nde->bsne", xch, p["wk"].to(x.dtype))
-    v = torch.einsum("bsnd,nde->bsne", xm.reshape(B, S, nh, hd),
-                     p["wv"].to(x.dtype))
-    i_pre, f_pre = (xc @ p["w_if"]["w"].to(x.dtype)).chunk(2, dim=-1)
+    q = _per_head(xch, p["wq"].to(x.dtype))
+    k = _per_head(xch, p["wk"].to(x.dtype))
+    v = _per_head(xm.reshape(B, S, nh, hd), p["wv"].to(x.dtype))
+    i_pre, f_pre = _mm(xc, p["w_if"]["w"]).chunk(2, dim=-1)
     f_pre = f_pre + p["f_bias"][None, None, :].to(f_pre.dtype)
-    return xm, z, q, k, v, i_pre, f_pre
+    return xm, pinned(z) if sharded else z, q, k, v, i_pre, f_pre
 
 
 def _mlstm_out(p, y: torch.Tensor, z: torch.Tensor, x: torch.Tensor):
-    y = rmsnorm(p["norm"], y) * F.silu(z)
-    return y @ p["down"]["w"].to(x.dtype)
+    y = block_norm("rmsnorm", p["norm"], y) * F.silu(z)
+    return _mm(y, p["down"]["w"])
 
 
 def mlstm_block(p, x: torch.Tensor, cfg: XLSTMCfg) -> torch.Tensor:
@@ -157,15 +263,27 @@ def mlstm_prefill(p, x: torch.Tensor, cfg: XLSTMCfg
     y = _mlstm_parallel(q, k, v, i_pre, f_pre).reshape(B, S, cfg.d_inner_m)
     out = _mlstm_out(p, y, z, x)
 
-    # final state: C̃_S = Σ_m exp(cum_S - cum_m + i_m - m_S) v_m k_m^T
+    args = (k, v, i_pre, f_pre)
+    if is_dtensor(k):                   # on each rank's rows and heads
+        C, n, m_S = _by_rows_and_heads(_mlstm_final_state, args,
+                                       ((True, 2),) * 4,
+                                       ((True, 1),) * 3)
+    else:
+        C, n, m_S = _mlstm_final_state(*args)
+    return out, MLSTMState(C=C, n=n, m=m_S, conv=conv_tail)
+
+
+def _mlstm_final_state(k, v, i_pre, f_pre):
+    """The recurrent state after the last position, (C, n, m): C̃_S =
+    Σ_m exp(cum_S - cum_m + i_m - m_S) v_m k_m^T."""
     logf = F.logsigmoid(f_pre.to(torch.float32))
     cum = torch.cumsum(logf, dim=1)                             # (B,S,nh)
     w_log = cum[:, -1:, :] - cum + i_pre.to(torch.float32)      # (B,S,nh)
     m_S = torch.amax(w_log, dim=1)                              # (B,nh)
-    w = torch.exp(w_log - m_S[:, None, :]).to(x.dtype)          # (B,S,nh)
+    w = torch.exp(w_log - m_S[:, None, :]).to(v.dtype)          # (B,S,nh)
     C = torch.einsum("bshv,bshk->bhvk", w[..., None] * v, k)
     n = torch.einsum("bsh,bshk->bhk", w, k)
-    return out, MLSTMState(C=C, n=n, m=m_S, conv=conv_tail)
+    return C, n, m_S
 
 
 def mlstm_state_init(cfg: XLSTMCfg, batch: int, dtype=torch.float32, *,
@@ -185,32 +303,67 @@ def mlstm_decode_step(p, x_t: torch.Tensor, state: MLSTMState,
     built out of place, ``state`` is left as it was."""
     B = x_t.shape[0]
     di, nh, hd = cfg.d_inner_m, cfg.n_heads, cfg.head_dim_m
-    up = x_t @ p["up"]["w"].to(x_t.dtype)
+    up = _mm(x_t, p["up"]["w"])
     xm, z = up.chunk(2, dim=-1)
     xc, new_conv = causal_conv1d_step(p["conv"], xm, state.conv)
     xc = F.silu(xc)
     xch = xc.reshape(B, nh, hd)
-    q = torch.einsum("bnd,nde->bne", xch, p["wq"].to(x_t.dtype))
-    k = torch.einsum("bnd,nde->bne", xch, p["wk"].to(x_t.dtype))
-    v = torch.einsum("bnd,nde->bne", xm.reshape(B, nh, hd),
-                     p["wv"].to(x_t.dtype))
-    i_pre, f_pre = (xc @ p["w_if"]["w"].to(x_t.dtype)).chunk(2, dim=-1)
+    q = _per_head(xch, p["wq"].to(x_t.dtype))
+    k = _per_head(xch, p["wk"].to(x_t.dtype))
+    v = _per_head(xm.reshape(B, nh, hd), p["wv"].to(x_t.dtype))
+    i_pre, f_pre = _mm(xc, p["w_if"]["w"]).chunk(2, dim=-1)
     f_pre = (f_pre + p["f_bias"][None, :]).to(torch.float32)
     i_pre = i_pre.to(torch.float32)
-    logf = F.logsigmoid(f_pre)                                  # (B,nh)
-    m_new = torch.maximum(logf + state.m, i_pre)
-    fs = torch.exp(logf + state.m - m_new).to(x_t.dtype)[..., None]
-    is_ = torch.exp(i_pre - m_new).to(x_t.dtype)[..., None]
-    C = fs[..., None] * state.C \
-        + is_[..., None] * v[..., :, None] * k[..., None, :]
-    n = fs * state.n + is_ * k
     qs = q / math.sqrt(hd)
-    num = torch.einsum("bhvk,bhk->bhv", C, qs)
-    den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, qs)),
-                        torch.exp(-m_new).to(x_t.dtype))
+    args = (state.C, state.n, state.m, qs, k, v, i_pre, f_pre)
+    if is_dtensor(state.C):
+        C, n, m_new, num, nq = _matrix_step_on_shards(*args)
+    else:
+        C, n, m_new, num, nq = _matrix_step(*args)
+    den = torch.maximum(torch.abs(nq), torch.exp(-m_new).to(x_t.dtype))
     y = (num / den[..., None]).reshape(B, di)
     return _mlstm_out(p, y, z, x_t), \
         MLSTMState(C=C, n=n, m=m_new, conv=new_conv)
+
+
+def _matrix_step(C, n, m, qs, k, v, i_pre, f_pre):
+    """One token's update of the matrix memory and its read-outs: (C, n,
+    m, C·qs, n·qs), both products contracting the key axis."""
+    logf = F.logsigmoid(f_pre)                                  # (B,nh)
+    m_new = torch.maximum(logf + m, i_pre)
+    fs = torch.exp(logf + m - m_new).to(qs.dtype)[..., None]
+    is_ = torch.exp(i_pre - m_new).to(qs.dtype)[..., None]
+    C = fs[..., None] * C + is_[..., None] * v[..., :, None] * k[..., None, :]
+    n = fs * n + is_ * k
+    num = torch.einsum("bhvk,bhk->bhv", C, qs)
+    return C, n, m_new, num, torch.einsum("bhk,bhk->bh", n, qs)
+
+
+def _matrix_step_on_shards(C, n, m, qs, k, v, i_pre, f_pre):
+    """:func:`_matrix_step` on DTensors, with ``C`` (B, nh, hd, hd) and
+    ``n`` left where the cache holds them: each rank's batch rows, and on
+    the axis that splits ``C``'s key axis its slice of it (``qs`` and
+    ``k`` are cut alike).  The update is elementwise there; the read-outs
+    come out ``Partial`` on that axis and only they, (B, nh, hd) and (B,
+    nh), are reduced.  The stabilizer ``m`` (B, nh) is gathered whole on
+    that axis."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    axes = rows_and_heads(C, head_dim=3)         # "heads": the key axis
+
+    def placed(key_dim, key=Replicate()):
+        return [Shard(0) if a == "rows" else
+                (Shard(key_dim) if key_dim is not None else key)
+                if a == "heads" else Replicate() for a in axes]
+    mesh = C.device_mesh
+    dims = (3, 2, None, 2, 2, None, None, None)
+    args = [a.redistribute(mesh, placed(d)) for a, d in zip(
+        (C, n, m, qs, k, v, i_pre, f_pre), dims)]
+    C, n, m_new, num, nq = on_shards(
+        _matrix_step, (placed(3), placed(2), placed(None),
+                       placed(None, Partial()), placed(None, Partial())),
+        *args)
+    return (C, n, m_new, num.redistribute(mesh, placed(None)),
+            nq.redistribute(mesh, placed(None)))
 
 
 # ------------------------------------------------------------------ sLSTM --
@@ -259,21 +412,22 @@ def _recurrent_weights(r: torch.Tensor) -> torch.Tensor:
     return r.permute(1, 2, 0, 3).reshape(nh, hd, g * e)
 
 
-def _slstm_cell(p, x_proj_t: torch.Tensor, state: SLSTMState, cfg: XLSTMCfg,
-                r_packed: torch.Tensor) -> Tuple[torch.Tensor, SLSTMState]:
+def _slstm_cell(x_proj_t: torch.Tensor, state: SLSTMState,
+                r_packed: torch.Tensor, b: torch.Tensor,
+                f_bias: torch.Tensor) -> Tuple[torch.Tensor, SLSTMState]:
     """One sLSTM step.  x_proj_t: (B, 4, nh, hd) pre-activations from the
-    input; ``r_packed``: ``_recurrent_weights(p["r"])``."""
-    B = x_proj_t.shape[0]
-    nh, hd = cfg.n_heads, cfg.head_dim_s
+    input; ``r_packed``: ``_recurrent_weights(r)``; ``b`` (4, nh, hd) in
+    ``x_proj_t``'s dtype; ``f_bias`` (nh, hd)."""
+    B, _, nh, hd = x_proj_t.shape
     # rec[b, g, h, e] = Σ_d h[b, h, d] r[g, h, d, e]
     rec = torch.bmm(state.h.transpose(0, 1), r_packed.to(state.h.dtype))
     rec = rec.reshape(nh, B, 4, hd).permute(1, 2, 0, 3)
-    pre = x_proj_t + rec + p["b"].to(x_proj_t.dtype).reshape(4, nh, hd)[None]
+    pre = x_proj_t + rec + b[None]
     z_pre, i_pre, f_pre, o_pre = pre.unbind(1)
     z = torch.tanh(z_pre)
     o = torch.sigmoid(o_pre)
     logi = i_pre.to(torch.float32)
-    logf = F.logsigmoid(f_pre.to(torch.float32) + p["f_bias"][None])
+    logf = F.logsigmoid(f_pre.to(torch.float32) + f_bias[None])
     m_new = torch.maximum(logf + state.m, logi)
     i_s = torch.exp(logi - m_new).to(z.dtype)
     f_s = torch.exp(logf + state.m - m_new).to(z.dtype)
@@ -289,24 +443,57 @@ def slstm_seq(p, x: torch.Tensor, cfg: XLSTMCfg,
               state: Optional[SLSTMState] = None
               ) -> Tuple[torch.Tensor, SLSTMState]:
     """Sequential sLSTM over (B, S, d); returns the head outputs (B, S, d)
-    and the state after the last step."""
+    and the state after the last step.  On DTensors the whole time loop
+    runs on each rank's batch rows and heads: the pre-activations, ``r``,
+    ``b`` and ``f_bias`` are redistributed once a call, and no collective
+    falls inside the loop; the state comes out on rows and heads."""
     B, S, d = x.shape
     nh, hd = cfg.n_heads, cfg.head_dim_s
-    xp = (x @ p["w_in"]["w"].to(x.dtype)).reshape(B, S, 4, nh, hd)
-    if state is None:
-        state = slstm_state_init(cfg, B, x.dtype, device=x.device)
-    r_packed = _recurrent_weights(p["r"])
+    xp = _mm(x, p["w_in"]["w"]).reshape(B, S, 4, nh, hd)
+    hs, state = _slstm_run(p, xp, state)
+    return hs.reshape(B, S, d), state
+
+
+def _slstm_run(p, xp: torch.Tensor, state: Optional[SLSTMState]
+               ) -> Tuple[torch.Tensor, SLSTMState]:
+    """The cell over xp (B, S, 4, nh, hd): (h (B, S, nh, hd), the last
+    state), on each rank's rows and heads for DTensors.  A rank's gradient
+    of ``r``, ``b`` and ``f_bias`` covers only its rows: ``Partial`` on the
+    rows' axes."""
+    b = p["b"].reshape(4, *xp.shape[-2:])
+    args = (xp, p["r"], b, p["f_bias"]) + tuple(state or (None,) * 4)
+    if is_dtensor(xp):
+        hs, *st = _by_rows_and_heads(
+            _slstm_loop, args, ((True, 3), (False, 1), (False, 1),
+                                (False, 0)) + ((True, 1),) * 4,
+            ((True, 2),) + ((True, 1),) * 4)
+    else:
+        hs, *st = _slstm_loop(*args)
+    return hs, SLSTMState(*st)
+
+
+def _slstm_loop(xp, r, b, f_bias, c, n, h, m):
+    """The time loop on plain tensors; a state of ``None`` starts at zero
+    at xp's (local) shape.  Returns (h (B, S, nh, hd), c, n, h, m)."""
+    B, _, _, nh, hd = xp.shape
+    state = SLSTMState(c, n, h, m) if c is not None else \
+        _slstm_zero_state(B, nh, hd, xp.dtype, xp.device)
+    r_packed = _recurrent_weights(r)
+    b = b.to(xp.dtype)
     hs = []
     for xt in torch.unbind(xp, 1):
-        h, state = _slstm_cell(p, xt, state, cfg, r_packed)
+        h, state = _slstm_cell(xt, state, r_packed, b, f_bias)
         hs.append(h)
-    return torch.stack(hs, 1).reshape(B, S, d), state
+    return (torch.stack(hs, 1),) + tuple(state)
 
 
 def slstm_state_init(cfg: XLSTMCfg, batch: int, dtype=torch.float32, *,
                      device) -> SLSTMState:
-    nh, hd = cfg.n_heads, cfg.head_dim_s
+    return _slstm_zero_state(batch, cfg.n_heads, cfg.head_dim_s, dtype,
+                             device)
 
+
+def _slstm_zero_state(batch, nh, hd, dtype, device) -> SLSTMState:
     def z():
         return torch.zeros((batch, nh, hd), dtype=dtype, device=device)
     return SLSTMState(c=z(), n=z(), h=z(),
@@ -317,10 +504,10 @@ def slstm_state_init(cfg: XLSTMCfg, batch: int, dtype=torch.float32, *,
 def slstm_block_ffn(p, y: torch.Tensor) -> torch.Tensor:
     """Post-cell part of the sLSTM block: group-norm + gated FFN (GELU,
     tanh approximation: ``jax.nn.gelu``'s default)."""
-    y = layernorm(p["gn"], y)
-    h = F.gelu(y @ p["ffn_gate"]["w"].to(y.dtype), approximate="tanh") \
-        * (y @ p["ffn_up"]["w"].to(y.dtype))
-    return h @ p["ffn_down"]["w"].to(y.dtype)
+    y = block_norm("layernorm", p["gn"], y)
+    h = F.gelu(_mm(y, p["ffn_gate"]["w"]), approximate="tanh") \
+        * _mm(y, p["ffn_up"]["w"])
+    return _mm(h, p["ffn_down"]["w"])
 
 
 def slstm_block(p, x: torch.Tensor, cfg: XLSTMCfg) -> torch.Tensor:
@@ -331,10 +518,12 @@ def slstm_block(p, x: torch.Tensor, cfg: XLSTMCfg) -> torch.Tensor:
 
 def slstm_decode_step(p, x_t: torch.Tensor, state: SLSTMState,
                       cfg: XLSTMCfg) -> Tuple[torch.Tensor, SLSTMState]:
+    """One token through the cell (on each rank's rows and heads for
+    DTensors, as :func:`slstm_seq`) and the FFN."""
     B, d = x_t.shape
     nh, hd = cfg.n_heads, cfg.head_dim_s
-    xp = (x_t @ p["w_in"]["w"].to(x_t.dtype)).reshape(B, 4, nh, hd)
-    h, state = _slstm_cell(p, xp, state, cfg, _recurrent_weights(p["r"]))
+    xp = _mm(x_t, p["w_in"]["w"]).reshape(B, 1, 4, nh, hd)
+    h, state = _slstm_run(p, xp, state)
     return slstm_block_ffn(p, h.reshape(B, d)), state
 
 

@@ -26,6 +26,10 @@ dispatch the process mesh does not run yet raise.  ``run_hybrid_ranks``
 (``tests/test_torch_spmd_hybrid.py``) takes the hybrid family's train
 step and ``ssd_chunked`` alone on DTensors; ``run_hybrid_serve_ranks``
 (``tests/test_torch_spmd_hybrid_serve.py``) its prefill and greedy decode.
+``run_xlstm_ranks`` (``tests/test_torch_spmd_xlstm.py``) takes the xLSTM
+family's train step, and ``_mlstm_parallel`` and ``slstm_seq`` alone on
+DTensors; ``run_xlstm_serve_ranks``
+(``tests/test_torch_spmd_xlstm_serve.py``) its prefill and greedy decode.
 """
 from __future__ import annotations
 
@@ -50,16 +54,22 @@ SERVE_ARCHS = ("gpt2-xl", "llama3-8b", "internvl2-2b", "mixtral-8x7b")
 PROMPT, CACHE_LEN, DECODE_STEPS = 16, 32, 4
 # what the process mesh does not run yet: (arch, moe_impl or None), and
 # the ROADMAP slice that each refusal names
-REFUSED = (("mixtral-8x7b", "ragged"), ("xlstm-1_3b", None),
-           ("seamless-m4t-large-v2", None))
-REFUSED_SLICE = {"mixtral-8x7b": "Q1.6f", "xlstm-1_3b": "Q1.6d",
-                 "seamless-m4t-large-v2": "Q1.6e"}
+REFUSED = (("mixtral-8x7b", "ragged"), ("seamless-m4t-large-v2", None))
+REFUSED_SLICE = {"mixtral-8x7b": "Q1.6f", "seamless-m4t-large-v2": "Q1.6e"}
 # the hybrid family: zamba2-smoke cut to 7 layers (3 groups of 2, each
 # followed by one of the 2 shared blocks, and a 1-layer tail); 4 × 16
 # tokens span two SSD chunks of 8
 HYBRID_ARCH, HYBRID_LAYERS, HYBRID_STEPS = "zamba2-7b", 7, 2
 # the SSD alone: (batch, seq, heads, head_dim, d_state), chunk
 SSD_SHAPE, SSD_CHUNK = (4, 16, 8, 32, 16), 8
+# the xLSTM family: xlstm-smoke cut to 5 layers (2 groups of one mLSTM and
+# one sLSTM block, then a 1-layer mLSTM tail)
+XLSTM_ARCH, XLSTM_LAYERS, XLSTM_STEPS = "xlstm-1_3b", 5, 2
+# the two xLSTM kernels alone: (batch, seq, heads, head_dim) of the mLSTM's
+# parallel form and of the sLSTM (d_model = heads × head_dim); the sLSTM
+# also runs at SLSTM_SHORT steps, to show that its collectives a call do
+# not grow with the sequence
+MLSTM_SHAPE, SLSTM_SHAPE, SLSTM_SHORT = (4, 16, 4, 16), (4, 16, 4, 8), 4
 
 
 # the JAX side's helpers, for the subprocess scripts of the test files: a
@@ -106,6 +116,15 @@ def flat_arrays(tree, prefix, out) -> None:
             out[f"{prefix}{k}"] = v
 
 
+def _write_npz(path, arrays) -> None:
+    """``arrays`` into the npz ``path``, which appears whole at once."""
+    import os
+    import numpy as np
+    with open(path + ".part", "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(path + ".part", path)
+
+
 def index_rows(offset, local_shape):
     """A shard's index as JAX's scripts save it: one [start, stop) row a
     dimension."""
@@ -126,6 +145,12 @@ def hybrid_cfg():
     """zamba2-smoke with HYBRID_LAYERS layers."""
     from repro_torch.configs import resolve
     return resolve(HYBRID_ARCH).smoke.replace(n_layers=HYBRID_LAYERS)
+
+
+def xlstm_cfg():
+    """xlstm-smoke with XLSTM_LAYERS layers."""
+    from repro_torch.configs import resolve
+    return resolve(XLSTM_ARCH).smoke.replace(n_layers=XLSTM_LAYERS)
 
 
 def cases():
@@ -216,7 +241,15 @@ def _constrain(dev) -> dict:
     return out
 
 
-def _train(dev, cfg, run) -> dict:
+def _train(dev, cfg, run, every_step=False) -> dict:
+    """``build_jitted``'s train step on ``run``'s weights and batches: the
+    losses and ``grad_norm`` a step, every leaf's local shard after the
+    last step, and on rank 0 the unsharded step's losses and the gathered
+    parameters.  With ``every_step``, also the shards after each step
+    (``step_shards``), and rank 0 writes the gathered parameters and
+    Adafactor factors after step 1 to ``run["step1_file"]`` (an npz of
+    "params/..." and "inner/..." keys, in place at once), for a JAX step
+    from the same state."""
     from repro_torch.checkpoint import from_numpy_tree, to_numpy_tree
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed.params import shard_tree
@@ -236,16 +269,24 @@ def _train(dev, cfg, run) -> dict:
     params = from_numpy_tree(run["params"], dev, p_sh)
     opt = adafactor(1e-3)
     state = opt.init(params)
-    out = {"losses": [], "grad_norms": []}
-    for b in batches:
+    out = {"losses": [], "grad_norms": [], "step_shards": []}
+    for i, b in enumerate(batches):
         with use_mesh(mesh):
             params, state, m = fn(params, state, shard_tree(b, b_sh))
         out["losses"].append(float(m["loss"].full_tensor()))
         out["grad_norms"].append(float(m["grad_norm"].full_tensor()))
-    out["shards"] = {**{"param/" + k: _local(v)
-                        for k, v in _leaves_by_path(params).items()},
-                     **{"opt/" + k: _local(v)
-                        for k, v in _leaves_by_path(state).items()}}
+        out["shards"] = {**{"param/" + k: _local(v)
+                            for k, v in _leaves_by_path(params).items()},
+                         **{"opt/" + k: _local(v)
+                            for k, v in _leaves_by_path(state).items()}}
+        if every_step:
+            out["step_shards"].append(out["shards"])
+            if i == 0:                 # collectives: every rank gathers
+                step1 = {}
+                flat_arrays({"params": to_numpy_tree(params),
+                             "inner": to_numpy_tree(state.inner)}, "", step1)
+                if torch.distributed.get_rank() == 0:
+                    _write_npz(run["step1_file"], step1)
     gathered = to_numpy_tree(params)           # a collective: every rank
     if torch.distributed.get_rank() == 0:
         whole = from_numpy_tree(run["params"], dev)
@@ -576,3 +617,179 @@ def run_hybrid_ranks(rank, dev, run) -> dict:
 def run_hybrid_serve_ranks(rank, dev, run) -> dict:
     """``run``: the weights, the prompt and the number of greedy steps."""
     return {"serve": _serve(dev, hybrid_cfg(), run)}
+
+
+def _grad_gap(got, want) -> float:
+    """The gap of two lists of gradients as one vector, relative to its
+    norm: DTensors (``got``) against plain tensors."""
+    g = torch.cat([t.full_tensor().reshape(-1) for t in got]).double()
+    w = torch.cat([t.reshape(-1) for t in want]).double()
+    return float((g - w).norm() / w.norm())
+
+
+def _rel(got, want) -> float:
+    """|got - want| at most, relative to |want| at most (``got`` a
+    DTensor)."""
+    got = got.full_tensor().double()
+    return float((got - want.double()).abs().max() / want.abs().max())
+
+
+def _mlstm_alone(dev, run) -> dict:
+    """``_mlstm_parallel`` on DTensors, batch on ``data`` and heads on
+    ``model``, against the unsharded one on the whole inputs: the output's
+    gap and placements, and the gradients of its five inputs, one vector,
+    of the loss ``Σ y · g``."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import xlstm
+
+    mesh = make_process_mesh((2, 2), ("data", "model"), dev)
+    names = ("q", "k", "v", "i_pre", "f_pre")
+    whole = [torch.as_tensor(run[k], device=dev).requires_grad_(True)
+             for k in names]
+    g = torch.as_tensor(run["g"], device=dev)
+    placed = [distribute_tensor(t.detach(), mesh.device_mesh,
+                                [Shard(0), Shard(2)]).requires_grad_(True)
+              for t in whole]
+    with use_mesh(mesh):
+        y = xlstm._mlstm_parallel(*placed)
+        (y * distribute_tensor(g, mesh.device_mesh, list(y.placements))
+         ).sum().backward()
+    y_want = xlstm._mlstm_parallel(*whole)
+    (y_want * g).sum().backward()
+    return {"y_gap": _rel(y, y_want.detach()),
+            "y_placements": [str(p) for p in y.placements],
+            "grad_gap": _grad_gap([t.grad for t in placed],
+                                  [t.grad for t in whole])}
+
+
+def _slstm_alone(dev, run) -> dict:
+    """``slstm_seq`` on DTensors, batch on ``data``, the input's features
+    and the weights placed by the parameter rules (heads on ``model``),
+    against the unsharded one: the outputs' and final state's gaps and
+    placements, and the gradients of the input and of the weights, one
+    vector, of the loss ``Σ h · g + Σ_state s``.  Then the staged calls
+    made within the time loop's call (``xlstm._slstm_run``: the
+    redistributions around the loop and the loop) at SLSTM_SHAPE's steps
+    and at SLSTM_SHORT."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.core.rad import tree_map
+    from repro_torch.distributed.params import param_shardings, shard_tree
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import xlstm
+
+    B, S, nh, hd = SLSTM_SHAPE
+    cfg = xlstm.XLSTMCfg(d_model=nh * hd, n_heads=nh)
+    mesh = make_process_mesh((2, 2), ("data", "model"), dev)
+    p_whole = tree_map(lambda a: torch.as_tensor(a, device=dev),
+                       run["params"])
+    x_whole = torch.as_tensor(run["x"], device=dev)
+    g = torch.as_tensor(run["g"], device=dev)
+
+    def loss(p, x, g_of):
+        h, st = xlstm.slstm_seq(p, x, cfg)
+        return (h * g_of(h)).sum() + sum(s.sum() for s in st), h, st
+
+    def sharded(seq):
+        p = tree_map(lambda t: t.requires_grad_(True),
+                     shard_tree(p_whole, param_shardings(p_whole, mesh)))
+        x = distribute_tensor(x_whole[:, :seq], mesh.device_mesh,
+                              [Shard(0), Shard(2)]).requires_grad_(True)
+        with use_mesh(mesh):
+            out, h, st = loss(p, x, lambda h: distribute_tensor(
+                g[:, :seq], mesh.device_mesh, list(h.placements)))
+            out.backward()
+        return p, x, h, st
+
+    p, x, h, st = sharded(S)
+    pw = tree_map(lambda t: t.clone().requires_grad_(True), p_whole)
+    xw = x_whole.clone().requires_grad_(True)
+    out_w, h_w, st_w = loss(pw, xw, lambda _: g)
+    out_w.backward()
+    res = {"h_gap": _rel(h, h_w.detach()),
+           "state_gap": max(_rel(a, b.detach()) for a, b in zip(st, st_w)),
+           "h_placements": [str(q) for q in h.placements],
+           "state_placements": [str(q) for q in st.c.placements],
+           "grad_gap": _grad_gap(
+               [x.grad] + [t.grad for t in tree_leaves(p)],
+               [xw.grad] + [t.grad for t in tree_leaves(pw)])}
+    loop = xlstm._slstm_run
+
+    def counted(*args):
+        before = spmd.staged_counts()
+        out = loop(*args)
+        res[f"staged_{seq}"] = {
+            k: v - before.get(k, 0) for k, v in spmd.staged_counts().items()
+            if k.endswith("_calls") and v > before.get(k, 0)}
+        return out
+    xlstm._slstm_run = counted
+    try:
+        for seq in (S, SLSTM_SHORT):
+            sharded(seq)
+    finally:
+        xlstm._slstm_run = loop
+    return res
+
+
+def run_xlstm_ranks(rank, dev, run) -> dict:
+    """``run``: the weights and batches of the xLSTM train step, and the
+    inputs of ``_mlstm_parallel`` and ``slstm_seq`` alone."""
+    from repro_torch.launch import spmd
+    spmd.reset_staged_counts()
+    out = {"train": _train(dev, xlstm_cfg(), run, every_step=True),
+           "mlstm": _mlstm_alone(dev, run["mlstm"]),
+           "slstm": _slstm_alone(dev, run["slstm"])}
+    out["staged"] = spmd.staged_counts()
+    return out
+
+
+def run_xlstm_serve_ranks(rank, dev, run) -> dict:
+    """``run``: the weights, the prompt and the number of greedy steps.
+    Besides the serving results: for each decode step (the sharded ones
+    first, then rank 0's unsharded ones, which stage nothing), the shapes
+    of the tensors the staged group carried and the bytes it staged inside
+    the mLSTM blocks' matrix-memory update."""
+    from repro_torch.launch import spmd
+    from repro_torch.models import causal_lm, xlstm
+
+    shapes, matrix, open_step = [], [], [False]
+    carry, decode = spmd.HostStagedGroup._run, causal_lm.decode_step
+    update = xlstm._matrix_step_on_shards
+
+    def staged():
+        return sum(v for k, v in spmd.staged_counts().items()
+                   if k.endswith("_bytes"))
+
+    def logged(self, name, outs, ins, call, in_place=False):
+        if open_step[0]:
+            shapes[-1].extend(tuple(t.shape) for t in list(ins) + list(outs))
+        return carry(self, name, outs, ins, call, in_place)
+
+    def decoding(*args, **kwargs):
+        shapes.append([])
+        matrix.append(0)
+        open_step[0] = True
+        try:
+            return decode(*args, **kwargs)
+        finally:
+            open_step[0] = False
+
+    def counted(*args):
+        before = staged()
+        out = update(*args)
+        matrix[-1] += staged() - before
+        return out
+
+    spmd.HostStagedGroup._run = logged
+    causal_lm.decode_step, xlstm._matrix_step_on_shards = decoding, counted
+    try:
+        out = _serve(dev, xlstm_cfg(), run)
+    finally:
+        spmd.HostStagedGroup._run = carry
+        causal_lm.decode_step, xlstm._matrix_step_on_shards = decode, update
+    return {"serve": out, "decode_shapes": shapes,
+            "matrix_staged_bytes": matrix}
