@@ -139,15 +139,19 @@
    the same mesh, mixtral-8x7b at full width cut to 2 layers (2
    Adafactor steps under the default rules, one under ``ep``), zamba2-7b
    at full width cut to 13 layers (2 Adafactor steps at 4 × 256, two SSD
-   chunks) and xlstm-1.3b at full width cut to 24 layers (2 Adafactor
+   chunks) and xlstm-1.3b at full width cut to 16 layers (2 Adafactor
    steps at 4 × 256; the mLSTM's parallel form and the sLSTM's time loop
    on each rank's rows and heads; rank 0 also serves in float64, for the
    fp32 floor of each served number; the sLSTM bias, whose step-1 update
-   rounding decides, held apart from the parameters' gap), each also served
-   sharded (batch 4, a prompt into a placed cache, 16 greedy steps; the
-   xLSTM decode step leaves its matrix memory where the cache holds it),
-   held to the same gates against the unsharded steps on rank 0, with the
-   served logits, tokens and every cache shard; no codec runs;
+   rounding decides, held apart from the parameters' gap), and
+   seamless-m4t-large-v2 at full width and depth (12 + 12 layers, the
+   vocabulary padded to 256,256; 2 Adafactor steps at 4 × 256 target
+   tokens over 32 frames), each also served sharded (batch 4, a prompt
+   into a placed cache, 16 greedy steps; the xLSTM decode step leaves its
+   matrix memory, and the encoder-decoder's its cross-attention K/V,
+   where the cache holds them), held to the same gates against the
+   unsharded steps on rank 0, with the served logits, tokens and every
+   cache shard; no codec runs;
 15. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
    versions at every (boundary shape, k a block) that the training,
    elastic and pipeline paths gave them, derived from each step's plan;
@@ -3159,7 +3163,7 @@ SPMD_HYBRID_BATCH, SPMD_HYBRID_SEQ = 4, 256   # two SSD chunks of 128
 SPMD_HYBRID_PROMPT = 256
 SPMD_HYBRID_CACHE_LEN = 512
 SPMD_XLSTM_ARCH = "xlstm-1_3b"
-SPMD_XLSTM_LAYERS = 24      # of 48: 3 of the 6 groups of 7 mLSTM + 1 sLSTM
+SPMD_XLSTM_LAYERS = 16      # of 48: 2 of the 6 groups of 7 mLSTM + 1 sLSTM
 SPMD_XLSTM_STEPS = 2        # Adafactor steps under the default rules
 # the leaf whose step-1 update rounding decides: the sLSTM bias, whose
 # input-gate row has a gradient of zero in exact arithmetic (the cell's
@@ -3203,6 +3207,12 @@ def spmd_xlstm_cfg():
         return cfg
     return cfg.replace(n_layers=SPMD_XLSTM_LAYERS,
                        name=f"{cfg.name}-l{SPMD_XLSTM_LAYERS}")
+
+
+SPMD_ENCDEC_ARCH = "seamless-m4t-large-v2"
+SPMD_ENCDEC_STEPS = 2       # Adafactor steps under the default rules
+# target tokens a sequence; the source is src_len_for(256) = 32 frames
+SPMD_ENCDEC_BATCH, SPMD_ENCDEC_SEQ = 4, 256
 
 
 def owned_shards(tree):
@@ -3298,7 +3308,8 @@ def train_floor(cfg, opt, whole, batch, ref, ref_new, skip) -> dict:
 
 
 def serve_floor(cfg, whole, prompt, ref, cache_len) -> dict:
-    """The fp32 floor of serving ``cfg``: the prefill of ``prompt`` and
+    """The fp32 floor of serving ``cfg``: the prefill of ``prompt`` (the
+    prefill step's batch: its tokens, and the encoder-decoder's frames) and
     the decode of the fp32 reference's tokens, unsharded in float64 (the
     gates stay fp32, as the model keeps them), against the fp32
     reference's logits and final cache in ``ref["serve"]``: the relative
@@ -3318,12 +3329,12 @@ def serve_floor(cfg, whole, prompt, ref, cache_len) -> dict:
     def gap(a, b):
         return float(np.abs(a - b).max() / np.abs(b).max())
     logits, cache = make_prefill_step(cfg64, cache_len, cfg.window)(
-        w64, {"tokens": prompt})
+        w64, prompt)
     step = make_decode_step(cfg64, cfg.window)
     exact_logits = [logits[:, -1, :cfg.vocab].cpu().numpy()]
     for tok in ref["serve"]["tokens"]:
         logits, cache = step(w64, cache, torch.as_tensor(
-            tok, device=prompt.device)[:, None])
+            tok, device=prompt["tokens"].device)[:, None])
         exact_logits.append(logits[:, -1, :cfg.vocab].cpu().numpy())
     gaps = [gap(a, b) for a, b in zip(ref["serve"]["logits"], exact_logits)]
     exact = {"logits": exact_logits, "cache": {k: v.cpu() for k, v in
@@ -3360,10 +3371,14 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
     """One rank of a phase that trains and serves ``cfg`` sharded over a
     ``SPMD_MESH`` process mesh (see :func:`run_spmd_lm_path`).
 
-    ``train_shape`` is (batch, seq) of ``SyntheticLM`` batches;
+    ``train_shape`` is (batch, seq) of ``SyntheticLM`` batches (of
+    ``SyntheticSeq2Seq`` batches of ``seq`` target tokens over
+    ``src_len_for(cfg, seq)`` frames for the encoder-decoder);
     ``rule_sets`` maps a label to (override set or ``None``, Adafactor
     steps), each run from the same initial weights; ``serve_shape`` is
-    (batch, prompt, cache_len, greedy steps).  The unsharded reference
+    (batch, prompt, cache_len, greedy steps); the encoder-decoder's
+    prompt is a target prefix over ``src_len_for(cfg, cache_len)`` frames
+    (:func:`encdec_inputs`).  The unsharded reference
     (step 1 and the served tokens) runs on rank 0 alone first.
     ``noise`` is (the path of a leaf whose step-1 update rounding decides,
     the index of its row on axis 1 whose gradient is zero in exact
@@ -3386,18 +3401,19 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
     from repro_torch.configs import InputShape
     from repro_torch.core.opgraph import tree_leaves
     from repro_torch.core.rad import tree_map
-    from repro_torch.data import SyntheticLM
+    from repro_torch.data import SyntheticLM, SyntheticSeq2Seq
     from repro_torch.distributed.params import shard_tree
     from repro_torch.distributed.sharding import (distribute, from_local,
                                                   use_mesh)
     from repro_torch.distributed.steps import (build_jitted,
                                                make_decode_step,
                                                make_prefill_step,
-                                               make_train_step)
+                                               make_train_step,
+                                               src_len_for)
     from repro_torch.kernels import topk_compress as tk
     from repro_torch.launch import spmd
     from repro_torch.launch.mesh import make_process_mesh
-    from repro_torch.models import causal_lm, ssm
+    from repro_torch.models import attention, causal_lm, encdec, ssm
     from repro_torch.optim import adafactor
     from repro_torch.perf import overrides
 
@@ -3410,19 +3426,37 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
     p_sh, o_sh, b_sh = meta["in_shardings"]
     noise_j = list(leaves_by_path(p_sh)).index(noise[0]) if noise else None
     opt = adafactor(SPMD_LR)
-    ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0, order=1)
+    seq2seq = cfg.family == "encdec"
+    model = encdec if seq2seq else causal_lm
+    if seq2seq:
+        ds = SyntheticSeq2Seq(vocab=cfg.vocab, src_len=src_len_for(cfg, seq),
+                              tgt_len=seq, d_frontend=cfg.d_frontend, seed=0)
+    else:
+        ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0, order=1)
     n_batches = max(n for _, n in rule_sets.values())
-    batches = [{k: torch.as_tensor(v, dtype=torch.int32, device=dev)
+    batches = [{k: torch.as_tensor(v, device=dev, dtype=torch.int32
+                                   if v.dtype.kind == "i" else None)
                 for k, v in ds.batch(batch, i).items()}
                for i in range(n_batches)]
-    prompt = torch.as_tensor(
-        SyntheticLM(vocab=cfg.vocab, seq_len=prompt_len, seed=1, order=1)
-        .batch(serve_batch, 0)["tokens"], dtype=torch.long, device=dev)
+    del ds
+    if seq2seq:
+        src, toks = encdec_inputs(cfg, serve_batch,
+                                  src_len_for(cfg, cache_len), prompt_len, 1)
+        prompt = {"src_embeds": src.to(dev), "tokens": toks.to(dev)}
+    else:
+        prompt = {"tokens": torch.as_tensor(
+            SyntheticLM(vocab=cfg.vocab, seq_len=prompt_len, seed=1,
+                        order=1).batch(serve_batch, 0)["tokens"],
+            dtype=torch.long, device=dev)}
+
+    def long_ids(b):
+        return {k: v if v.is_floating_point() else v.long()
+                for k, v in b.items()}
 
     def whole_params():
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)              # every rank draws the same tree
-        return causal_lm.init(cfg, gen)
+        return model.init(cfg, gen)
 
     def greedy(logits):
         return torch.argmax(logits[:, -1], dim=-1)[:, None]
@@ -3445,8 +3479,7 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
             init_noise = tree_leaves(whole)[noise_j].cpu().clone()
         t0 = time.perf_counter()
         new, _, m = make_train_step(cfg, opt)(
-            whole, opt.init(whole), {k: v.long() for k, v in
-                                     batches[0].items()})
+            whole, opt.init(whole), long_ids(batches[0]))
         torch.cuda.synchronize(dev)
         ref["train"] = {"loss": float(m["loss"]),
                         "grad_norm": float(m["grad_norm"]),
@@ -3457,12 +3490,12 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
             gc.collect()
             torch.cuda.empty_cache()
             ref["train_floor"], exact_train = train_floor(
-                cfg, opt, whole, {k: v.long() for k, v in
-                                  batches[0].items()}, ref, ref_new, noise_j)
+                cfg, opt, whole, long_ids(batches[0]), ref, ref_new,
+                noise_j)
             ref["train64"] = {k: exact_train[k]
                               for k in ("loss", "grad_norm")}
         logits, cache = make_prefill_step(cfg, cache_len, cfg.window)(
-            whole, {"tokens": prompt})
+            whole, prompt)
         step = make_decode_step(cfg, cfg.window)
         ref_logits, ref_tokens = [real(logits)], []
         for _ in range(n_new):
@@ -3662,7 +3695,7 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
     dist.barrier()
     t0 = time.perf_counter()
     with use_mesh(mesh):
-        logits, cache = pf(params, shard_tree({"tokens": prompt}, pb_sh))
+        logits, cache = pf(params, shard_tree(prompt, pb_sh))
     torch.cuda.synchronize(dev)
     serve = {"prefill_s": time.perf_counter() - t0,
              "prefill_staged": spmd.staged_counts(), "decode_ms": [],
@@ -3674,23 +3707,39 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
         return {k: [str(p) for p in v.placements]
                 for k, v in leaves_by_path(tree).items()}
     cache_pl, want_pl = placements(cache), placements(c_sh)
-    for i in range(n_new):
-        tok = greedy(full)
-        serve["tokens"].append(tok[:, 0].tolist())
-        spmd.reset_staged_counts()
-        mode = CommDebugMode()
-        dist.barrier()
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        with use_mesh(mesh), mode:
-            logits, cache = df(params, cache, distribute(tok, t_sh))
-        torch.cuda.synchronize(dev)
-        serve["decode_ms"].append((time.perf_counter() - t0) * 1e3)
-        if i == 1:                      # a steady step's collectives
-            serve["decode_collectives"] = comm_counts(mode)
-            serve["decode_staged"] = spmd.staged_counts()
-        full = logits.full_tensor()
-        got_logits.append(real(full))
+    # the staged bytes of the attention over the cache's K/V shards in a
+    # decode step (q cut to them, the partial scores' sums, the output's
+    # gather), beside the K/V a rank holds
+    attend, attend_bytes = attention.attend_by_head_dim, [0]
+
+    def counted_attend(*args, **kwargs):
+        before = staged_bytes()
+        out = attend(*args, **kwargs)
+        attend_bytes[0] += staged_bytes() - before
+        return out
+    attention.attend_by_head_dim = counted_attend
+    try:
+        for i in range(n_new):
+            tok = greedy(full)
+            serve["tokens"].append(tok[:, 0].tolist())
+            spmd.reset_staged_counts()
+            attend_bytes[0] = 0
+            mode = CommDebugMode()
+            dist.barrier()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with use_mesh(mesh), mode:
+                logits, cache = df(params, cache, distribute(tok, t_sh))
+            torch.cuda.synchronize(dev)
+            serve["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 1:                  # a steady step's collectives
+                serve["decode_collectives"] = comm_counts(mode)
+                serve["decode_staged"] = spmd.staged_counts()
+                serve["decode_attention_staged_bytes"] = attend_bytes[0]
+            full = logits.full_tensor()
+            got_logits.append(real(full))
+    finally:
+        attention.attend_by_head_dim = attend
     launches = launch_counts()
     serve["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     serve["cache_placements"] = {k: v for k, v in cache_pl.items()
@@ -3700,9 +3749,9 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
     serve["decode_placements"] = {k: v for k, v in placements(cache).items()
                                   if k != "pos"}
     serve["pos"] = int(cache["pos"].full_tensor())
-    serve["matrix_memory_bytes"] = sum(
-        v.to_local().numel() * v.to_local().element_size()
-        for k, v in leaves_by_path(cache).items() if k.endswith("/C"))
+    serve["cache_bytes"] = {
+        k: v.to_local().numel() * v.to_local().element_size()
+        for k, v in leaves_by_path(cache).items() if k != "pos"}
 
     def shard(d):
         from torch.distributed.tensor._utils import (
@@ -3729,7 +3778,7 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
             "argument_bytes_total": sum(arg_bytes.values()),
             "argument_bytes_want": want, "train": runs, "serve": serve,
             "launches": launches, "reference": ref,
-            "n_params": causal_lm.count_params(cfg), "cfg": cfg.name}
+            "n_params": model.count_params(cfg), "cfg": cfg.name}
 
 
 def spmd_moe_rank(rank, dev):
@@ -3757,6 +3806,16 @@ def spmd_xlstm_rank(rank, dev):
         (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW),
         noise=(SPMD_XLSTM_NOISE_LEAF, SPMD_XLSTM_NOISE_ROW),
         floors=("serve",))
+
+
+def spmd_encdec_rank(rank, dev):
+    """One rank of the spmd-encdec phase (see :func:`run_spmd_encdec_path`)."""
+    from repro_torch.configs import resolve
+    return spmd_lm_rank(
+        rank, dev, resolve(SPMD_ENCDEC_ARCH).full,
+        (SPMD_ENCDEC_BATCH, SPMD_ENCDEC_SEQ),
+        {"default": (None, SPMD_ENCDEC_STEPS)},
+        (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW))
 
 
 def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
@@ -3934,7 +3993,14 @@ def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
                   "decode_ms": serve["decode_ms"],
                   "decode_collectives_rank_0": serve["decode_collectives"],
                   "decode_staged_rank_0": serve["decode_staged"],
-                  "matrix_memory_bytes_rank_0": serve["matrix_memory_bytes"],
+                  "decode_attention_staged_bytes_rank_0":
+                  serve["decode_attention_staged_bytes"],
+                  "matrix_memory_bytes_rank_0": sum(
+                      b for k, b in serve["cache_bytes"].items()
+                      if k.endswith("/C")),
+                  "cross_kv_bytes_rank_0": sum(
+                      b for k, b in serve["cache_bytes"].items()
+                      if k.endswith(("/xk", "/xv"))),
                   "peak_mem_gb_by_rank": [r["serve"]["peak_mem_gb"]
                                           for r in ranks],
                   "max_logit_gap": max(logit_gaps), "limit": SPMD_LOGIT_GAP,
@@ -4021,6 +4087,31 @@ def run_spmd_xlstm_path(dev):
         (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW),
         "full width and depth" if cfg.n_layers == 48 else
         f"{cfg.n_layers} of 48 layers; full width")
+
+
+def run_spmd_encdec_path(dev):
+    """seamless-m4t-large-v2 at full width and depth (12 encoder and 12
+    decoder layers, d_model 1024, 16 heads of 64, d_ff 8192, its vocabulary
+    of 256,206 padded to 256,256; seed 0, fp32) on the ``(2, 2)``
+    ``("data", "model")`` process mesh of :func:`run_spmd_moe_path`.
+    Trains SPMD_ENCDEC_STEPS Adafactor steps of ``build_jitted``'s step on
+    ``SyntheticSeq2Seq`` batches of SPMD_ENCDEC_BATCH × SPMD_ENCDEC_SEQ
+    target tokens over ``src_len_for`` frames under the default rules (the
+    cross-attention on each rank's rows and heads); then serves on the
+    same weights: the sharded prefill of a SPMD_PROMPT-token target prefix
+    over ``src_len_for(SPMD_CACHE_LEN)`` frames at batch SPMD_SERVE_BATCH
+    into a SPMD_CACHE_LEN-slot cache, whose self- and cross-attention K/V
+    both have the batch on ``data`` and head_dim on ``model``, and
+    SPMD_NEW greedy decode steps, which attend over each rank's slice of
+    the cross K/V and never gather it.  The gates and records are
+    :func:`run_spmd_lm_path`'s; the records add the bytes of the cross K/V
+    a rank holds beside the bytes a decode step stages.  Returns the
+    ranks' summed launch counts (no codec: all 0)."""
+    return run_spmd_lm_path(
+        dev, "spmd-encdec", spmd_encdec_rank,
+        (SPMD_ENCDEC_BATCH, SPMD_ENCDEC_SEQ),
+        (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW),
+        "full width and depth")
 
 
 # =============================================== analysis, checks, dry run ==
@@ -4340,6 +4431,7 @@ def main() -> int:
     paths["spmd moe"] = run_spmd_moe_path(dev)
     paths["spmd hybrid"] = run_spmd_hybrid_path(dev)
     paths["spmd xlstm"] = run_spmd_xlstm_path(dev)
+    paths["spmd encdec"] = run_spmd_encdec_path(dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on its path: "

@@ -7,7 +7,7 @@ steps call the model's ``prefill`` / ``decode_step`` eagerly: ``encdec``'s
 for the encoder-decoder, ``causal_lm``'s for every other family (the
 hybrid and xLSTM included: they are served this way, never
 stage-sharded).  On a process mesh the same steps run on DTensors placed by
-those shardings (every family but the encoder-decoder).
+those shardings, for every family.
 
 The abstract inputs (:func:`input_specs`, :func:`decode_state_specs`,
 :func:`abstract_params`) are tensors on the ``meta`` device, in the JAX
@@ -257,11 +257,6 @@ def _placed_step(step: Callable, in_sh: tuple, out_sh: tuple) -> Callable:
     return placed
 
 
-# the families a process mesh does not run yet, by the ROADMAP slice that
-# brings each
-_NOT_ON_PROCESSES = {"encdec": "Q1.6e"}
-
-
 def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
                  optimizer: Optional[Optimizer] = None,
                  param_overrides: Optional[Dict[str, P]] = None,
@@ -289,19 +284,13 @@ def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
     ``meta["cache_sh"]``; the logits and metrics stay where the step left
     them); a plain tensor among the arguments raises.  Run it under
     ``use_mesh(mesh)`` for the model's ``constrain`` calls, as the JAX
-    package's callers do.  The dense, vlm, moe, hybrid and xLSTM families
-    run there (the moe family with ``moe_impl="capacity"``); the
-    encoder-decoder family raises ``NotImplementedError`` (ROADMAP Q1.6e),
-    as do the ragged and loop dispatches (Q1.6f).  A mesh of devices in
+    package's callers do.  Every family runs there (the moe family with
+    ``moe_impl="capacity"``; the ragged and loop dispatches raise
+    ``NotImplementedError``, ROADMAP Q1.6f).  A mesh of devices in
     one process whose positions hold several distinct devices raises
     ``NotImplementedError``: placing shards across them needs the process
     mesh."""
     del remat
-    if mesh.is_process_mesh and cfg.family in _NOT_ON_PROCESSES:
-        raise NotImplementedError(
-            f"build_jitted on {mesh!r}: the {cfg.family} family "
-            f"({cfg.name}) is not sharded over processes yet (ROADMAP "
-            f"{_NOT_ON_PROCESSES[cfg.family]})")
     if mesh.is_process_mesh and cfg.family == "moe" \
             and cfg.moe_impl != "capacity":
         raise NotImplementedError(

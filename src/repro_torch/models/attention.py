@@ -272,12 +272,10 @@ def _decode_sharded(p, x, cache: KVCache, pos, *, head_dim: int,
     of the cache (the sequence is never sharded, so the write is local);
     the score contraction over the rank's slice of head_dim gives partial
     scores, summed over the axes that shard head_dim; the values mix on
-    each rank's slice, and only the (B, 1, H, hd) output is gathered.  The
-    cache is never gathered."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
+    each rank's slice, and only the (B, 1, H, hd) output is gathered
+    (:func:`attend_by_head_dim`).  The cache is never gathered."""
     mesh = x.device_mesh
-    rows = tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
-                 for pl in x.placements)
+    rows = rows_of(x)
     q, k, v = (t.redistribute(mesh, rows) for t in _project_flat(p, x, x))
 
     def heads(q, k, v, pos):
@@ -293,29 +291,58 @@ def _decode_sharded(p, x, cache: KVCache, pos, *, head_dim: int,
     new_v = on_shards(_write, c_pl, cache.v, v.redistribute(mesh, c_pl), pos)
     spec = ("batch", None, None, "model")
     q, new_k, new_v = (constrain(t, spec) for t in (q, new_k, new_v))
-    kv_pl = tuple(new_k.placements)
+    out = attend_by_head_dim(
+        q, new_k, new_v, rows, head_dim=head_dim,
+        mask=lambda s_max, pos: _decode_mask(s_max, pos, window).unsqueeze(2),
+        mask_args=(pos,))
+    return dense({"w": p["wo"]["w"]}, out), KVCache(k=new_k, v=new_v)
+
+
+def rows_of(x) -> tuple:
+    """The placements of DTensor ``x`` on its batch rows alone: each mesh
+    axis that shards dimension 0 keeps it, the others replicate."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                 for pl in x.placements)
+
+
+def attend_by_head_dim(q, k, v, rows, *, head_dim: int, mask=None,
+                       mask_args=()):
+    """Attention of DTensor q (B, Sq, H, hd) over k, v (B, Skv, Hkv, hd),
+    k and v placed alike: the batch on some mesh axes, head_dim on others,
+    the sequence whole.  q is cut to k's placements; each rank contracts
+    its q against its slice of head_dim, the partial scores are summed
+    over the axes that shard head_dim, the values mix on each rank's
+    slice, and only the output is gathered, to ``rows``, with the heads
+    flat: (B, Sq, H·hd).  k and v are never gathered.  ``mask(Skv,
+    *mask_args)``, on each rank's local ``mask_args``, gives where the
+    scores (B, Hkv, g, Sq, Skv) attend (True), or ``mask`` is ``None``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    kv_pl = tuple(k.placements)
     q = q.redistribute(mesh, kv_pl)
     scale = 1.0 / math.sqrt(head_dim)
 
     def scores(q, k):
-        qg = q.reshape(q.shape[0], 1, k.shape[2], -1, q.shape[-1])
+        qg = q.reshape(q.shape[0], q.shape[1], k.shape[2], -1, q.shape[-1])
         return torch.einsum("bqkgd,bskd->bkgqs", qg,
                             k.to(q.dtype)).to(torch.float32) * scale
     by_hd = [isinstance(pl, Shard) and pl.dim == 3 for pl in kv_pl]
     s = on_shards(scores, [Partial() if h else pl
-                           for h, pl in zip(by_hd, kv_pl)], q, new_k)
+                           for h, pl in zip(by_hd, kv_pl)], q, k)
     s = s.redistribute(mesh, [Replicate() if h else pl
                               for h, pl in zip(by_hd, kv_pl)])
 
-    def mix(s, v, pos):
-        m = _decode_mask(v.shape[1], pos, window).unsqueeze(2)
-        s = torch.where(m, s, s.new_full((), NEG_INF))
+    def mix(s, v, *args):
+        if mask is not None:
+            s = torch.where(mask(v.shape[1], *args), s,
+                            s.new_full((), NEG_INF))
         probs = torch.softmax(s, dim=-1).to(v.dtype)
         out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-        return out.reshape(out.shape[0], 1, -1, out.shape[-1])
-    out = on_shards(mix, kv_pl, s, new_v, pos).redistribute(mesh, rows)
-    out = on_shards(lambda o: o.reshape(o.shape[0], 1, -1), rows, out)
-    return dense({"w": p["wo"]["w"]}, out), KVCache(k=new_k, v=new_v)
+        return out.reshape(out.shape[0], out.shape[1], -1, out.shape[-1])
+    out = on_shards(mix, kv_pl, s, v, *mask_args).redistribute(mesh, rows)
+    return on_shards(lambda o: o.reshape(o.shape[0], o.shape[1], -1), rows,
+                     out)
 
 
 def attn_flops(tokens: int, kv_tokens: int, d: int, n_heads: int, n_kv: int,

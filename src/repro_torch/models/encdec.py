@@ -13,13 +13,19 @@ JAX package's key paths (``src_proj``, ``embed``, ``enc``, ``enc_norm``,
 :func:`repro_torch.models.scan_config.scan` in a loop.  Decode keeps two
 caches a decoder layer: the self-attention KV cache, which grows with the
 generated tokens, and the cross-attention K/V of the encoder memory,
-computed once by the prefill.  The JAX package's sharding ``constrain``
-calls are the identity on one device and are left out, as in
-:mod:`repro_torch.models.causal_lm`.
+computed once by the prefill.  The JAX package's five sharding
+``constrain`` calls are made where it makes them, and one more on the
+cross-attention K/V the prefill caches: the identity on one device, a
+redistribution of DTensors on a process mesh.
 
-``prefill`` and ``decode_step`` run under ``torch.inference_mode``; the
-cache's ``pos`` is a 0-d int32 tensor on the device, so a decode step reads
-nothing back to the host and leaves the cache it was given as it was.
+``prefill`` and ``decode_step`` run under ``torch.inference_mode`` (under
+``torch.no_grad`` on DTensors); the cache's ``pos`` is a 0-d int32 tensor
+on the device, so a decode step reads nothing back to the host and leaves
+the cache it was given as it was.  On a process mesh the cross-attention
+K/V stay on the cache's shards (batch on ``data``, head_dim on
+``model``): the prefill projects them straight onto those placements,
+and a decode step attends over each rank's slice of head_dim
+(:func:`repro_torch.models.attention.attend_by_head_dim`).
 """
 from __future__ import annotations
 
@@ -29,8 +35,11 @@ import torch
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.core.opgraph import split_generator
+from repro_torch.distributed.sharding import (constrain, is_dtensor,
+                                              on_shards, replicate_like)
 from . import attention as attn
-from .causal_lm import _checkpointed, _stack, _stack_init
+from .causal_lm import (_checkpointed, _constrain_act, _constrain_rows,
+                        _head, _serving, _stack, _stack_init)
 from .layers import (cross_entropy, dense, dense_init, embed, embed_init,
                      init_device, mlp, mlp_init, norm_apply, norm_init)
 from .scan_config import scan
@@ -105,8 +114,9 @@ def _enc_block(cfg: ModelCfg, pl, h):
 
 def encode(cfg: ModelCfg, params, src_embeds: torch.Tensor) -> torch.Tensor:
     """src_embeds: (B, S_src, d_frontend) -> encoder memory (B, S_src, d)."""
-    x = dense(params["src_proj"], src_embeds.to(cfg.dtype))
-    block = _checkpointed(cfg, lambda h, pl: _enc_block(cfg, pl, h))
+    x = _constrain_rows(dense(params["src_proj"], src_embeds.to(cfg.dtype)))
+    block = _checkpointed(
+        cfg, lambda h, pl: _constrain_act(_enc_block(cfg, pl, h)))
     x, _ = scan(lambda h, pl: (block(h, pl), None), x, params["enc"])
     return norm_apply(cfg.norm, params["enc_norm"], x)
 
@@ -124,21 +134,13 @@ def _dec_block(cfg: ModelCfg, pl, h, memory):
 def _decoder_train(cfg: ModelCfg, params, tgt_tokens: torch.Tensor,
                    memory: torch.Tensor) -> torch.Tensor:
     """Teacher-forced decoder logits (B, S_tgt, V_padded) over ``memory``."""
-    x = embed(params["embed"], tgt_tokens, cfg.dtype)
-    block = _checkpointed(cfg, lambda h, pl, m: _dec_block(cfg, pl, h, m))
+    x = _constrain_rows(embed(params["embed"], tgt_tokens, cfg.dtype))
+    block = _checkpointed(
+        cfg, lambda h, pl, m: _constrain_act(_dec_block(cfg, pl, h, m)))
     x, _ = scan(lambda h, pl: (block(h, pl, memory), None), x,
                 params["dec"])
     x = norm_apply(cfg.norm, params["final_norm"], x)
     return _head(cfg, params, x)
-
-
-def _head(cfg: ModelCfg, params, x):
-    logits = dense(params["head"], x)
-    if cfg.vocab_padded != cfg.vocab:
-        # mask padding classes so the softmax is over the true vocabulary
-        valid = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
-        logits = torch.where(valid, logits, logits.new_full((), -1e30))
-    return logits
 
 
 def train_loss(cfg: ModelCfg, params, batch: Dict[str, torch.Tensor]
@@ -148,33 +150,45 @@ def train_loss(cfg: ModelCfg, params, batch: Dict[str, torch.Tensor]
     memory = encode(cfg, params, batch["src_embeds"])
     logits = _decoder_train(cfg, params, batch["tokens"], memory)
     ce = cross_entropy(logits, batch["labels"])
-    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
-                                             device=ce.device)}
+    return ce, {"ce": ce, "aux": replicate_like(
+        torch.zeros((), dtype=torch.float32, device=ce.device), ce)}
 
 
 # ---------------------------------------------------------------- serving --
 def _cross_kv(cfg: ModelCfg, pl, memory):
+    """The memory's cross-attention K/V (B, S_src, H_kv, hd); on DTensors
+    with the batch on ``data`` and head_dim on ``model``, where the cache
+    holds them (one redistribution of the projections' heads)."""
     B, Sk = memory.shape[:2]
     k = dense({"w": pl["cross_attn"]["wk"]["w"]}, memory)
     v = dense({"w": pl["cross_attn"]["wv"]["w"]}, memory)
-    return (k.reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim))
+    return tuple(constrain(t.reshape(B, Sk, cfg.n_kv_heads, cfg.head_dim),
+                           ("batch", None, None, "model")) for t in (k, v))
 
 
 def _cross_attn(cfg: ModelCfg, pl, hh, xk, xv):
     """Cross-attention of ``hh`` (B, S, d) against the memory's K/V: no
     mask, no RoPE.  The same operations as ``attn_train(..., x_kv=memory,
     rope_fraction=0)`` given ``_cross_kv``'s K/V, so the values equal
-    the JAX package's, which computes them in both."""
+    the JAX package's, which computes them in both.  On DTensors q is cut
+    to the K/V's shards and each rank attends over its slice of head_dim
+    (:func:`~repro_torch.models.attention.attend_by_head_dim`): ``xk`` and
+    ``xv`` are never gathered."""
     B, S = hh.shape[:2]
     q = dense({"w": pl["cross_attn"]["wq"]["w"]}, hh)
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    o = attn.sdpa(q, xk.to(q.dtype), xv.to(q.dtype), None)
-    return dense({"w": pl["cross_attn"]["wo"]["w"]},
-                 o.reshape(B, S, cfg.n_heads * cfg.head_dim))
+    if is_dtensor(q):
+        rows = attn.rows_of(hh)
+        q = on_shards(lambda t: t.reshape(t.shape[0], S, -1, cfg.head_dim),
+                      rows, q.redistribute(q.device_mesh, rows))
+        o = attn.attend_by_head_dim(q, xk, xv, rows, head_dim=cfg.head_dim)
+    else:
+        q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+        o = attn.sdpa(q, xk.to(q.dtype), xv.to(q.dtype), None).reshape(
+            B, S, cfg.n_heads * cfg.head_dim)
+    return dense({"w": pl["cross_attn"]["wo"]["w"]}, o)
 
 
-@torch.inference_mode()
+@_serving
 def prefill(cfg: ModelCfg, params, src_embeds: torch.Tensor,
             tgt_tokens: torch.Tensor, cache_len: int
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -199,7 +213,8 @@ def prefill(cfg: ModelCfg, params, src_embeds: torch.Tensor,
     x, caches = scan(body, x, params["dec"])
     x = norm_apply(cfg.norm, params["final_norm"], x[:, -1:, :])
     return _head(cfg, params, x), {
-        "pos": torch.tensor(S, dtype=torch.int32, device=x.device),
+        "pos": replicate_like(torch.tensor(S, dtype=torch.int32,
+                                           device=x.device), x),
         "dec": _stack(caches)}
 
 
@@ -220,7 +235,7 @@ def cache_init(cfg: ModelCfg, batch: int, cache_len: int, src_len: int,
             "dec": {"k": z(*kv), "v": z(*kv), "xk": z(*xkv), "xv": z(*xkv)}}
 
 
-@torch.inference_mode()
+@_serving
 def decode_step(cfg: ModelCfg, params, cache: Dict[str, Any],
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decoder token (B, 1) against the self-KV cache and the fixed
@@ -228,7 +243,7 @@ def decode_step(cfg: ModelCfg, params, cache: Dict[str, Any],
     cache's ``xk`` / ``xv`` are the given cache's tensors."""
     pos = cache["pos"]
     dec = cache["dec"]
-    x = embed(params["embed"], tokens, cfg.dtype)
+    x = _constrain_rows(embed(params["embed"], tokens, cfg.dtype))
 
     def body(h, xs):
         pl, c = xs["p"], xs["c"]

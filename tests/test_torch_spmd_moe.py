@@ -195,9 +195,8 @@ def test_capacity_drops_entries(both, case):
 @pytest.mark.parametrize("arch,impl", ranks.REFUSED,
                          ids=[a for a, _ in ranks.REFUSED])
 def test_refused_on_a_process_mesh(both, arch, impl):
-    """The ragged dispatch and the encoder-decoder family raise
-    NotImplementedError naming the ROADMAP slice that brings each (Q1.6f,
-    Q1.6e), for every step kind."""
+    """The ragged dispatch raises NotImplementedError naming the ROADMAP
+    slice that brings it (Q1.6f), for every step kind."""
     _, port = both
     for kind in ("train", "prefill", "decode"):
         msg = port[0]["refused"][(arch, kind)]

@@ -30,6 +30,10 @@ step and ``ssd_chunked`` alone on DTensors; ``run_hybrid_serve_ranks``
 family's train step, and ``_mlstm_parallel`` and ``slstm_seq`` alone on
 DTensors; ``run_xlstm_serve_ranks``
 (``tests/test_torch_spmd_xlstm_serve.py``) its prefill and greedy decode.
+``run_encdec_ranks`` (``tests/test_torch_spmd_encdec.py``) takes the
+encoder-decoder's train step, and ``run_encdec_serve_ranks``
+(``tests/test_torch_spmd_encdec_serve.py``) its prefill and greedy decode,
+with the cross-attention K/V on the cache's shards.
 """
 from __future__ import annotations
 
@@ -54,8 +58,8 @@ SERVE_ARCHS = ("gpt2-xl", "llama3-8b", "internvl2-2b", "mixtral-8x7b")
 PROMPT, CACHE_LEN, DECODE_STEPS = 16, 32, 4
 # what the process mesh does not run yet: (arch, moe_impl or None), and
 # the ROADMAP slice that each refusal names
-REFUSED = (("mixtral-8x7b", "ragged"), ("seamless-m4t-large-v2", None))
-REFUSED_SLICE = {"mixtral-8x7b": "Q1.6f", "seamless-m4t-large-v2": "Q1.6e"}
+REFUSED = (("mixtral-8x7b", "ragged"),)
+REFUSED_SLICE = {"mixtral-8x7b": "Q1.6f"}
 # the hybrid family: zamba2-smoke cut to 7 layers (3 groups of 2, each
 # followed by one of the 2 shared blocks, and a 1-layer tail); 4 × 16
 # tokens span two SSD chunks of 8
@@ -70,6 +74,11 @@ XLSTM_ARCH, XLSTM_LAYERS, XLSTM_STEPS = "xlstm-1_3b", 5, 2
 # also runs at SLSTM_SHORT steps, to show that its collectives a call do
 # not grow with the sequence
 MLSTM_SHAPE, SLSTM_SHAPE, SLSTM_SHORT = (4, 16, 4, 16), (4, 16, 4, 8), 4
+# the encoder-decoder: seamless-smoke at 2 + 2 layers with its vocabulary
+# padded (500 classes to 512), so the head's mask runs on DTensors
+ENCDEC_ARCH, ENCDEC_STEPS = "seamless-m4t-large-v2", 2
+ENCDEC_PAD = dict(name="seamless-smoke-pad", n_layers=4, n_enc_layers=2,
+                  vocab=500, vocab_pad_to=64)
 
 
 # the JAX side's helpers, for the subprocess scripts of the test files: a
@@ -151,6 +160,12 @@ def xlstm_cfg():
     """xlstm-smoke with XLSTM_LAYERS layers."""
     from repro_torch.configs import resolve
     return resolve(XLSTM_ARCH).smoke.replace(n_layers=XLSTM_LAYERS)
+
+
+def encdec_cfg():
+    """seamless-smoke as ENCDEC_PAD cuts and pads it."""
+    from repro_torch.configs import resolve
+    return resolve(ENCDEC_ARCH).smoke.replace(**ENCDEC_PAD)
 
 
 def cases():
@@ -246,10 +261,10 @@ def _train(dev, cfg, run, every_step=False) -> dict:
     losses and ``grad_norm`` a step, every leaf's local shard after the
     last step, and on rank 0 the unsharded step's losses and the gathered
     parameters.  With ``every_step``, also the shards after each step
-    (``step_shards``), and rank 0 writes the gathered parameters and
-    Adafactor factors after step 1 to ``run["step1_file"]`` (an npz of
-    "params/..." and "inner/..." keys, in place at once), for a JAX step
-    from the same state."""
+    (``step_shards``), and where ``run`` names a ``step1_file``, rank 0
+    writes the gathered parameters and Adafactor factors after step 1 to
+    it (an npz of "params/..." and "inner/..." keys, in place at once),
+    for a JAX step from the same state."""
     from repro_torch.checkpoint import from_numpy_tree, to_numpy_tree
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed.params import shard_tree
@@ -281,7 +296,7 @@ def _train(dev, cfg, run, every_step=False) -> dict:
                             for k, v in _leaves_by_path(state).items()}}
         if every_step:
             out["step_shards"].append(out["shards"])
-            if i == 0:                 # collectives: every rank gathers
+            if i == 0 and "step1_file" in run:   # every rank gathers
                 step1 = {}
                 flat_arrays({"params": to_numpy_tree(params),
                              "inner": to_numpy_tree(state.inner)}, "", step1)
@@ -458,7 +473,8 @@ def run_moe_ranks(rank, dev, runs) -> dict:
 
 
 def _serve(dev, cfg, run) -> dict:
-    """The sharded prefill of ``run["prompt"]`` and decode steps of
+    """The sharded prefill of ``run["prompt"]`` (over ``run["src"]``'s
+    frames for the encoder-decoder) and decode steps of
     ``run["tokens"]`` (or, without them, ``run["greedy"]`` greedy steps),
     and on rank 0 the unsharded steps alike."""
     from repro_torch.checkpoint import from_numpy_tree, to_numpy_tree
@@ -483,6 +499,8 @@ def _serve(dev, cfg, run) -> dict:
                                         device=dev)}
     if "prefix" in run:
         prompt["prefix_embeds"] = torch.as_tensor(run["prefix"], device=dev)
+    if "src" in run:
+        prompt["src_embeds"] = torch.as_tensor(run["src"], device=dev)
     given = [torch.as_tensor(t, dtype=torch.long, device=dev)
              for t in run.get("tokens", ())]
 
@@ -747,22 +765,24 @@ def run_xlstm_ranks(rank, dev, run) -> dict:
     return out
 
 
-def run_xlstm_serve_ranks(rank, dev, run) -> dict:
-    """``run``: the weights, the prompt and the number of greedy steps.
-    Besides the serving results: for each decode step (the sharded ones
-    first, then rank 0's unsharded ones, which stage nothing), the shapes
-    of the tensors the staged group carried and the bytes it staged inside
-    the mLSTM blocks' matrix-memory update."""
+def _staged(suffix) -> int:
+    """This process's staged ``suffix`` so far: "_calls" or "_bytes"."""
     from repro_torch.launch import spmd
-    from repro_torch.models import causal_lm, xlstm
+    return sum(v for k, v in spmd.staged_counts().items()
+               if k.endswith(suffix))
 
-    shapes, matrix, open_step = [], [], [False]
-    carry, decode = spmd.HostStagedGroup._run, causal_lm.decode_step
-    update = xlstm._matrix_step_on_shards
 
-    def staged():
-        return sum(v for k, v in spmd.staged_counts().items()
-                   if k.endswith("_bytes"))
+def _serve_logged(dev, cfg, run, model, inner=None) -> dict:
+    """:func:`_serve` of ``cfg``, and for each call of ``model.decode_step``
+    (the sharded steps first, then rank 0's unsharded ones, which stage
+    nothing): the shapes of the tensors the staged group carried
+    (``decode_shapes``) and, where ``inner`` names a function (a (module,
+    name) pair), the bytes it staged inside that function's calls within
+    the step (``inner_staged_bytes``)."""
+    from repro_torch.launch import spmd
+
+    shapes, inner_bytes, open_step = [], [], [False]
+    carry, decode = spmd.HostStagedGroup._run, model.decode_step
 
     def logged(self, name, outs, ins, call, in_place=False):
         if open_step[0]:
@@ -771,7 +791,7 @@ def run_xlstm_serve_ranks(rank, dev, run) -> dict:
 
     def decoding(*args, **kwargs):
         shapes.append([])
-        matrix.append(0)
+        inner_bytes.append(0)
         open_step[0] = True
         try:
             return decode(*args, **kwargs)
@@ -779,17 +799,93 @@ def run_xlstm_serve_ranks(rank, dev, run) -> dict:
             open_step[0] = False
 
     def counted(*args):
-        before = staged()
-        out = update(*args)
-        matrix[-1] += staged() - before
+        before = _staged("_bytes")
+        out = fn(*args)
+        if open_step[0]:
+            inner_bytes[-1] += _staged("_bytes") - before
         return out
 
     spmd.HostStagedGroup._run = logged
-    causal_lm.decode_step, xlstm._matrix_step_on_shards = decoding, counted
+    model.decode_step = decoding
+    if inner:
+        fn = getattr(*inner)
+        setattr(*inner, counted)
     try:
-        out = _serve(dev, xlstm_cfg(), run)
+        out = _serve(dev, cfg, run)
     finally:
         spmd.HostStagedGroup._run = carry
-        causal_lm.decode_step, xlstm._matrix_step_on_shards = decode, update
+        model.decode_step = decode
+        if inner:
+            setattr(*inner, fn)
     return {"serve": out, "decode_shapes": shapes,
-            "matrix_staged_bytes": matrix}
+            "inner_staged_bytes": inner_bytes}
+
+
+def run_xlstm_serve_ranks(rank, dev, run) -> dict:
+    """``run``: the weights, the prompt and the number of greedy steps.
+    Besides the serving results, :func:`_serve_logged`'s, ``inner`` the
+    mLSTM blocks' matrix-memory update."""
+    from repro_torch.models import causal_lm, xlstm
+    return _serve_logged(dev, xlstm_cfg(), run, causal_lm,
+                         (xlstm, "_matrix_step_on_shards"))
+
+
+def run_encdec_ranks(rank, dev, run) -> dict:
+    """``run``: the weights and batches of the encoder-decoder's train
+    step."""
+    from repro_torch.launch import spmd
+    spmd.reset_staged_counts()
+    out = {"train": _train(dev, encdec_cfg(), run, every_step=True)}
+    out["staged"] = spmd.staged_counts()
+    return out
+
+
+def _staged_besides(mod, name, skip, suffix, log):
+    """Replaces ``mod.name`` by a wrapper that appends to ``log``, for each
+    call, the staged ``suffix`` (:func:`_staged`) it made besides that of
+    the calls of ``mod.skip`` within it.  Returns the function replaced."""
+    fn, inner = getattr(mod, name), getattr(mod, skip)
+
+    def wrapped(*args):
+        spent = [0]
+
+        def skipped(*a):
+            before = _staged(suffix)
+            out = inner(*a)
+            spent[0] += _staged(suffix) - before
+            return out
+        before = _staged(suffix)
+        setattr(mod, skip, skipped)
+        try:
+            out = fn(*args)
+        finally:
+            setattr(mod, skip, inner)
+        log.append(_staged(suffix) - before - spent[0])
+        return out
+    setattr(mod, name, wrapped)
+    return fn
+
+
+def run_encdec_serve_ranks(rank, dev, run) -> dict:
+    """``run``: the weights, the frames, the prompt and the number of
+    greedy steps.  Besides the serving results and :func:`_serve_logged`'s
+    shapes, for each call of ``encdec._cross_kv`` and of
+    ``encdec._cross_attn`` (the sharded prefill's layers first, then the
+    sharded decode steps', then rank 0's unsharded calls), what it staged
+    besides its projections (``encdec.dense``): the calls that move the
+    K/V onto the cache's shards (``cross_kv_staged_calls``), and the bytes
+    of the attention over them (``cross_attn_staged_bytes``)."""
+    from repro_torch.models import encdec
+
+    kv_calls, attn_bytes = [], []
+    saved = {name: _staged_besides(encdec, name, "dense", suffix, log)
+             for name, suffix, log in (("_cross_kv", "_calls", kv_calls),
+                                       ("_cross_attn", "_bytes",
+                                        attn_bytes))}
+    try:
+        out = _serve_logged(dev, encdec_cfg(), run, encdec)
+    finally:
+        for name, fn in saved.items():
+            setattr(encdec, name, fn)
+    return dict(out, cross_kv_staged_calls=kv_calls,
+                cross_attn_staged_bytes=attn_bytes)
