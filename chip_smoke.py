@@ -650,7 +650,7 @@ def time_step_phases(cfg, params, opt_state, opt, batch, dev) -> dict:
     import torch
     from repro_torch.core.rad import tree_map
     from repro_torch.models import causal_lm
-    from repro_torch.optim import clip_by_global_norm
+    from repro_torch.optim import clip_by_global_norm, distinct_storage
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -661,10 +661,11 @@ def time_step_phases(cfg, params, opt_state, opt, batch, dev) -> dict:
     loss.backward()
     ev[2].record()
     loss = loss.detach()                # the graph holds the leaves
-    grads, _ = clip_by_global_norm(tree_map(lambda p: p.grad, leaves), 1.0)
-    del leaves                          # the unclipped gradients go here
+    grads, _ = clip_by_global_norm(
+        distinct_storage(tree_map(lambda p: p.grad, leaves)), 1.0)
+    del leaves
     ev[3].record()
-    new = opt.update(grads, opt_state, params)
+    new = opt.update(grads, opt_state, params, consume_grads=True)
     ev[4].record()
     torch.cuda.synchronize(dev)
     del new, grads
@@ -2943,10 +2944,11 @@ def check_pipeline_smoke(dev) -> dict:
 
 # ============================================= sharded over processes ==
 SPMD_MESH = ((2, 2), ("data", "model"))
-SPMD_STEPS = 3              # Adafactor steps (build_jitted's default)
+SPMD_STEPS = 2              # Adafactor steps (build_jitted's default)
 SPMD_GAP = 1e-5             # step 1 against the unsharded step, rel
 SPMD_LR = 1e-3              # Adafactor's (build_jitted's default)
 SPMD_TIMEOUT = 900.0        # every wait of the ranks
+GAP_CHUNK = 1 << 24         # entries a rank holds the parameters' gap on
 
 
 def local_bytes(tree) -> int:
@@ -3143,11 +3145,16 @@ def run_spmd_path(dev):
 # ===================================== a model sharded over processes ==
 SPMD_MOE_ARCH = "mixtral-8x7b"
 SPMD_MOE_LAYERS = 2         # of 32: the 4 ranks share one card's 80 GB
-SPMD_MOE_STEPS = 2          # Adafactor steps under the default rules
+SPMD_MOE_STEPS = 1          # Adafactor steps under the default rules
+# the override sets the phase also runs one step of, beside the default
+# rules and ep: the sequence-sharded residual with each MoE layout, and
+# the ragged dispatch (seqpar_dots runs on the CPU only: no full config
+# sets remat, so on the card it would be seqpar again)
+SPMD_MOE_SETS = ("seqpar", "ep_seqpar", "moe_w_seqpar", "moe_ragged")
 SPMD_SERVE_BATCH = 4
 SPMD_PROMPT = 128
 SPMD_CACHE_LEN = 256
-SPMD_NEW = 16               # greedy decode steps
+SPMD_NEW = 8                # greedy decode steps
 SPMD_LOGIT_GAP = 1e-5       # served logits vs unsharded, rel to max |logit|
 SPMD_CACHE_GAP = 1e-5       # final cache shards vs unsharded slices, rel
 # a served number that misses its gate passes only if its distance from
@@ -3158,13 +3165,13 @@ SPMD_CACHE_GAP = 1e-5       # final cache shards vs unsharded slices, rel
 SPMD_FLOOR_FACTOR = 1.5
 SPMD_HYBRID_ARCH = "zamba2-7b"
 SPMD_HYBRID_LAYERS = 13     # of 81: 2 groups of 6, both shared blocks, a tail
-SPMD_HYBRID_STEPS = 2       # Adafactor steps under the default rules
+SPMD_HYBRID_STEPS = 1       # Adafactor steps under the default rules
 SPMD_HYBRID_BATCH, SPMD_HYBRID_SEQ = 4, 256   # two SSD chunks of 128
 SPMD_HYBRID_PROMPT = 256
 SPMD_HYBRID_CACHE_LEN = 512
 SPMD_XLSTM_ARCH = "xlstm-1_3b"
-SPMD_XLSTM_LAYERS = 16      # of 48: 2 of the 6 groups of 7 mLSTM + 1 sLSTM
-SPMD_XLSTM_STEPS = 2        # Adafactor steps under the default rules
+SPMD_XLSTM_LAYERS = 8       # of 48: 1 of the 6 groups of 7 mLSTM + 1 sLSTM
+SPMD_XLSTM_STEPS = 1        # Adafactor steps under the default rules
 # the leaf whose step-1 update rounding decides: the sLSTM bias, whose
 # input-gate row has a gradient of zero in exact arithmetic (the cell's
 # output is invariant to a common shift of a row's log input gates);
@@ -3210,7 +3217,7 @@ def spmd_xlstm_cfg():
 
 
 SPMD_ENCDEC_ARCH = "seamless-m4t-large-v2"
-SPMD_ENCDEC_STEPS = 2       # Adafactor steps under the default rules
+SPMD_ENCDEC_STEPS = 1       # Adafactor steps under the default rules
 # target tokens a sequence; the source is src_len_for(256) = 32 frames
 SPMD_ENCDEC_BATCH, SPMD_ENCDEC_SEQ = 4, 256
 
@@ -3367,7 +3374,7 @@ def staged_bytes() -> int:
 
 
 def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
-                 noise=None, floors=()):
+                 noise=None, floors=(), serve_sets=None):
     """One rank of a phase that trains and serves ``cfg`` sharded over a
     ``SPMD_MESH`` process mesh (see :func:`run_spmd_lm_path`).
 
@@ -3375,11 +3382,18 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
     ``SyntheticSeq2Seq`` batches of ``seq`` target tokens over
     ``src_len_for(cfg, seq)`` frames for the encoder-decoder);
     ``rule_sets`` maps a label to (override set or ``None``, Adafactor
-    steps), each run from the same initial weights; ``serve_shape`` is
-    (batch, prompt, cache_len, greedy steps); the encoder-decoder's
-    prompt is a target prefix over ``src_len_for(cfg, cache_len)`` frames
-    (:func:`encdec_inputs`).  The unsharded reference
-    (step 1 and the served tokens) runs on rank 0 alone first.
+    steps), each run from the same initial weights with the step
+    ``build_jitted`` builds for the set's config changes and parameter
+    overrides, under its rules; ``serve_sets`` maps a label to an
+    override set or ``None`` (by default ``{"default": None}``), each
+    served on those weights with the set's config changes and parameter
+    overrides; ``serve_shape`` is (batch, prompt, cache_len, greedy
+    steps); the encoder-decoder's prompt is a target prefix over
+    ``src_len_for(cfg, cache_len)`` frames (:func:`encdec_inputs`).  The
+    unsharded references run on rank 0 alone while the others wait: the
+    served tokens of each serve set's config first, and step 1 of a rule
+    set's config before the first set that needs it (one set of updated
+    parameters on the host at a time).
     ``noise`` is (the path of a leaf whose step-1 update rounding decides,
     the index of its row on axis 1 whose gradient is zero in exact
     arithmetic) or ``None``: that leaf is left out of the parameters' gap
@@ -3389,11 +3403,11 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
     the largest move the clip allows, and the other rows' moves, after
     the one scale that fits them best (the clip's, which the noise sets),
     are the reference's within SPMD_NOISE_RESIDUAL of their largest move.
-    ``floors`` names what rank 0 also runs unsharded in float64:
-    ``"train"``, step 1 (:func:`train_floor`), and ``"serve"``, the
-    serving of the same tokens (:func:`serve_floor`); the fp32
-    reference's distance from it is the fp32 floor of each such
-    number."""
+    ``floors`` names what rank 0 also runs unsharded in float64 for the
+    unchanged config: ``"train"``, step 1 (:func:`train_floor`), and
+    ``"serve"``, the ``"default"`` serving's tokens
+    (:func:`serve_floor`); the fp32 reference's distance from it is the
+    fp32 floor of each such number."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3404,7 +3418,7 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
     from repro_torch.data import SyntheticLM, SyntheticSeq2Seq
     from repro_torch.distributed.params import shard_tree
     from repro_torch.distributed.sharding import (distribute, from_local,
-                                                  use_mesh)
+                                                  place, use_mesh)
     from repro_torch.distributed.steps import (build_jitted,
                                                make_decode_step,
                                                make_prefill_step,
@@ -3419,11 +3433,12 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
 
     batch, seq = train_shape
     serve_batch, prompt_len, cache_len, n_new = serve_shape
+    serve_sets = serve_sets or {"default": None}
     mesh = make_process_mesh(*SPMD_MESH, dev)
     world = mesh.size
-    fn, args, meta = build_jitted(cfg, mesh, InputShape("spmd-train", seq,
-                                                        batch, "train"))
-    p_sh, o_sh, b_sh = meta["in_shardings"]
+    _, args, meta = build_jitted(cfg, mesh, InputShape("spmd-train", seq,
+                                                       batch, "train"))
+    p_sh = meta["in_shardings"][0]
     noise_j = list(leaves_by_path(p_sh)).index(noise[0]) if noise else None
     opt = adafactor(SPMD_LR)
     seq2seq = cfg.family == "encdec"
@@ -3449,6 +3464,18 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
                         order=1).batch(serve_batch, 0)["tokens"],
             dtype=torch.long, device=dev)}
 
+    def changes(set_name):
+        """An override set's config changes, as (key, value) pairs."""
+        ov = overrides.get(set_name) or {}
+        return tuple(sorted((ov.get("cfg") or {}).items()))
+
+    def config(set_name):
+        return cfg.replace(**dict(changes(set_name)))
+
+    def ref_label(set_name):
+        """The reference a set is held to: that of its config changes."""
+        return ",".join(f"{k}={v}" for k, v in changes(set_name)) or "base"
+
     def long_ids(b):
         return {k: v if v.is_floating_point() else v.long()
                 for k, v in b.items()}
@@ -3466,58 +3493,108 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
         classes sit at -1e30)."""
         return logits[:, -1, :cfg.vocab].cpu().numpy()
 
-    # the unsharded reference, on rank 0 alone, before the sharded run:
-    # step 1 and the served tokens; its results wait on the host
-    ref = {}
+    def release():
+        """Frees what the card's and the host's caching allocators keep
+        (the staged group's pinned buffers among them: four ranks' cached
+        buffers otherwise outgrow the machine's host memory)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name in ("_accelerator_emptyHostCache", "_host_emptyCache"):
+            if dev.type == "cuda" and hasattr(torch._C, name):
+                getattr(torch._C, name)()    # its name by torch version
+                break
+
+    # the unsharded references, on rank 0 alone: the served tokens of each
+    # serve set's config before the sharded run, and step 1 of a rule
+    # set's config before the first set that needs it (train_reference);
+    # their results wait on the host
+    ref = {"train": {}, "serve": {}, "peak_mem_gb": 0.0}
     init_noise = None                   # the noise leaf's initial value
     exact_train = exact_serve = None    # rank 0's float64 step and serving
-    ref_new = None                      # rank 0's updated parameters
+    ref_new = {}                        # rank 0's updated parameters
+    current_ref = [None]                # the config ref_new is of
+    ref_launches = dict.fromkeys(tk.KERNELS, 0)  # made by train_reference
+
+    def peak_of_reference():
+        ref["peak_mem_gb"] = max(ref["peak_mem_gb"],
+                                 torch.cuda.max_memory_allocated(dev) / 1e9)
+
+    t_phase = time.perf_counter()
     if rank == 0:
         torch.cuda.reset_peak_memory_stats(dev)
         whole = whole_params()
         if noise:
             init_noise = tree_leaves(whole)[noise_j].cpu().clone()
-        t0 = time.perf_counter()
-        new, _, m = make_train_step(cfg, opt)(
-            whole, opt.init(whole), long_ids(batches[0]))
-        torch.cuda.synchronize(dev)
-        ref["train"] = {"loss": float(m["loss"]),
-                        "grad_norm": float(m["grad_norm"]),
-                        "step_s": time.perf_counter() - t0}
-        ref_new = [t.cpu() for t in tree_leaves(new)]
-        del new, m
-        if "train" in floors:
-            gc.collect()
-            torch.cuda.empty_cache()
-            ref["train_floor"], exact_train = train_floor(
-                cfg, opt, whole, long_ids(batches[0]), ref, ref_new,
-                noise_j)
-            ref["train64"] = {k: exact_train[k]
-                              for k in ("loss", "grad_norm")}
-        logits, cache = make_prefill_step(cfg, cache_len, cfg.window)(
-            whole, prompt)
-        step = make_decode_step(cfg, cfg.window)
-        ref_logits, ref_tokens = [real(logits)], []
-        for _ in range(n_new):
-            tok = greedy(logits)
-            ref_tokens.append(tok[:, 0].tolist())
-            logits, cache = step(whole, cache, tok)
-            ref_logits.append(real(logits))
-        ref["serve"] = {"logits": ref_logits, "tokens": ref_tokens,
-                        "cache": {k: v.cpu().numpy() for k, v in
-                                  leaves_by_path(cache).items()
-                                  if k != "pos"},
-                        "pos": int(cache["pos"])}
-        del logits, cache
+        for label, set_name in serve_sets.items():
+            c = config(set_name)
+            logits, cache = make_prefill_step(c, cache_len, c.window)(
+                whole, prompt)
+            step = make_decode_step(c, c.window)
+            ref_logits, ref_tokens = [real(logits)], []
+            for _ in range(n_new):
+                tok = greedy(logits)
+                ref_tokens.append(tok[:, 0].tolist())
+                logits, cache = step(whole, cache, tok)
+                ref_logits.append(real(logits))
+            ref["serve"][label] = {
+                "logits": ref_logits, "tokens": ref_tokens,
+                "cache": {k: v.cpu().numpy() for k, v in
+                          leaves_by_path(cache).items() if k != "pos"},
+                "pos": int(cache["pos"])}
+            del logits, cache
         if "serve" in floors:
-            ref["floor"], exact_serve = serve_floor(cfg, whole, prompt, ref,
-                                                    cache_len)
+            ref["floor"], exact_serve = serve_floor(
+                cfg, whole, prompt, {"serve": ref["serve"]["default"]},
+                cache_len)
         del whole
-        ref["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        gc.collect()
-        torch.cuda.empty_cache()
+        peak_of_reference()
+        release()
+
+    def train_reference(set_name):
+        """Rank 0's unsharded step 1 of ``set_name``'s config (and its
+        float64 floor for the unchanged config), unless the last one was
+        of the same config; the others wait.  One set of updated
+        parameters is kept on the host at a time."""
+        nonlocal exact_train
+        label = ref_label(set_name)
+        if current_ref[0] == label:
+            return label
+        current_ref[0] = label
+        if rank == 0:
+            before = launch_counts()
+            ref_new.clear()
+            release()
+            torch.cuda.reset_peak_memory_stats(dev)
+            whole = whole_params()
+            t0 = time.perf_counter()
+            new, _, m = make_train_step(config(set_name), opt)(
+                whole, opt.init(whole), long_ids(batches[0]))
+            torch.cuda.synchronize(dev)
+            ref["train"][label] = {"loss": float(m["loss"]),
+                                   "grad_norm": float(m["grad_norm"]),
+                                   "step_s": time.perf_counter() - t0}
+            ref_new[label] = [t.cpu() for t in tree_leaves(new)]
+            del new, m
+            if "train" in floors and label == "base":
+                release()
+                ref["train_floor"], exact_train = train_floor(
+                    cfg, opt, whole, long_ids(batches[0]),
+                    {"train": ref["train"]["base"]}, ref_new["base"],
+                    noise_j)
+                ref["train64"] = {k: exact_train[k]
+                                  for k in ("loss", "grad_norm")}
+            del whole
+            peak_of_reference()
+            release()
+            for n, c in launch_counts().items():
+                ref_launches[n] += c - before[n]
+        dist.barrier()
+        return label
+
     dist.barrier()
-    tk.reset_launch_counts()            # the sharded run's launches alone
+    # the sharded run's launches: rank 0's step-1 references, which run
+    # lazily between its sets (train_reference), are taken out at the end
+    tk.reset_launch_counts()
 
     # each rank in turn draws the whole tree and keeps its shards
     params = None
@@ -3528,31 +3605,36 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
             torch.cuda.empty_cache()
         dist.barrier()
     init_host = tree_map(lambda d: d.to_local().cpu(), params)
+    del params
+    # seconds of the serving references and of drawing the weights
+    before_train_s = time.perf_counter() - t_phase
 
-    def initial():
-        return tree_map(lambda h, a, sh: from_local(h.to(dev), sh, a.shape),
-                        init_host, args[0], p_sh)
+    def initial(shardings):
+        """The initial weights placed by ``shardings``: each rank's shards
+        as the default rules place them, redistributed where
+        ``shardings`` places a leaf otherwise."""
+        return tree_map(lambda h, a, sh0, sh: place(
+            from_local(h.to(dev), sh0, a.shape), sh), init_host, args[0],
+            p_sh, shardings)
 
-    sharded = [shard_tree(b, b_sh) for b in batches]
-    state = opt.init(params)
-    arg_bytes = {"params": local_bytes(params), "opt_state":
-                 local_bytes(state), "batch": local_bytes(sharded[0])}
-    want = argument_bytes_by_leaves(args, meta["in_shardings"])
-    del state
-
-    mine_ref = []                       # this rank's shards of the reference
+    # this rank's shards of the reference a run is held to, placed by the
+    # default rules: kept while consecutive runs share the reference
+    ref_shards = {"key": None, "shards": []}
     coords = [dict(zip(mesh.axis_names, c)) for c in
               itertools.product(*map(range, mesh.shape.values()))]
 
     def params_gap(new, source, mine_ref, dtype):
         """The updated parameters' gap to a reference's, as one vector (the
         ``noise`` leaf left out): rank 0 takes each leaf's host copy in
-        ``dtype`` from ``source(j)`` and scatters each rank's slices, host
-        to host through the staged group (kept in ``mine_ref`` where it is
-        a list), and each rank sums on the host."""
+        ``dtype`` from ``source(j)`` and scatters each rank's slices by the
+        default rules' shardings, host to host through the staged group
+        (kept in ``mine_ref`` where it is a list), and each rank sums its
+        shard of each leaf, placed so (a set that places a leaf otherwise
+        has it moved), against them on the card."""
         num = den = 0.0
         for j, (got, sh) in enumerate(zip(tree_leaves(new),
                                           tree_leaves(p_sh))):
+            got = place(got, sh)
             if mine_ref is None or len(mine_ref) <= j:
                 shape = tuple(got.shape)
                 mine = torch.empty(sh.shard_shape(shape), dtype=dtype)
@@ -3570,11 +3652,17 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
                 mine = mine_ref[j]
             if j == noise_j:
                 continue
-            theirs = mine.double()
-            d = got.to_local().cpu().double() - theirs
-            num += float((d * d).sum())
-            den += float((theirs * theirs).sum())
-        sums = torch.tensor([num, den], dtype=torch.float64)
+            # on the card, in chunks of GAP_CHUNK entries: a float64 copy
+            # of a whole shard, on four ranks at once, outgrows the host's
+            # memory
+            got_flat, mine_flat = got.to_local().reshape(-1), \
+                mine.reshape(-1)
+            for lo in range(0, mine_flat.numel(), GAP_CHUNK):
+                theirs = mine_flat[lo:lo + GAP_CHUNK].to(dev, torch.float64)
+                d = got_flat[lo:lo + GAP_CHUNK].double() - theirs
+                num = num + (d * d).sum()
+                den = den + (theirs * theirs).sum()
+        sums = torch.tensor([float(num), float(den)], dtype=torch.float64)
         dist.all_reduce(sums)
         return math.sqrt(float(sums[0]) / float(sums[1]))
 
@@ -3589,7 +3677,7 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
         if rank != 0:
             return None
         start = init_noise.double()
-        want = ref_new[noise_j].double()
+        want = ref_new["base"][noise_j].double()
         rows = torch.ones(start.shape, dtype=torch.bool)
         rows[:, noise[1]] = False
 
@@ -3626,12 +3714,35 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
         return out
 
     def train(set_name, n_steps):
-        rules = overrides.get(set_name)["rules"] if set_name else None
-        params = initial()
+        if rank == 0:
+            print(f"{cfg.name}: {n_steps} step(s) under "
+                  f"{set_name or 'the default rules'}", flush=True)
+        t_set = time.perf_counter()
+        ov = overrides.get(set_name) or {}
+        label = train_reference(set_name)
+        t_ref = time.perf_counter()
+        fn, s_args, s_meta = build_jitted(
+            config(set_name), mesh, InputShape("spmd-train", seq, batch,
+                                               "train"),
+            param_overrides=ov.get("param_overrides"))
+        s_p_sh, _, s_b_sh = s_meta["in_shardings"]
+        params = initial(s_p_sh)
         state = opt.init(params)
-        out = {"losses": [], "grad_norms": [], "step_s": [], "steps": []}
+        sharded = [shard_tree(b, s_b_sh) for b in batches[:n_steps]]
+        out = {"losses": [], "grad_norms": [], "step_s": [], "steps": [],
+               "reference": label,
+               "argument_bytes": {"params": local_bytes(params),
+                                  "opt_state": local_bytes(state),
+                                  "batch": local_bytes(sharded[0])},
+               "argument_bytes_want": argument_bytes_by_leaves(
+                   s_args, s_meta["in_shardings"])}
+        out["argument_bytes_total"] = sum(out["argument_bytes"].values())
+        if ref_shards["key"] != label:
+            ref_shards["key"], ref_shards["shards"] = label, []
+            gc.collect()
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+        out["setup_s"] = time.perf_counter() - t_ref
         for i in range(n_steps):
             spmd.reset_staged_counts()
             split_bytes[0] = 0
@@ -3639,7 +3750,7 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
             dist.barrier()
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            with use_mesh(mesh, rules), mode:
+            with use_mesh(mesh, ov.get("rules")), mode:
                 params, state, m = fn(params, state, sharded[i])
             torch.cuda.synchronize(dev)
             out["step_s"].append(time.perf_counter() - t0)
@@ -3656,20 +3767,24 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
                     / 1e9
                 out["peak_reserved_gb"] = \
                     torch.cuda.max_memory_reserved(dev) / 1e9
+                t_gap = time.perf_counter()
                 out["params_rel_gap"] = params_gap(
-                    params, lambda j: ref_new[j], mine_ref, torch.float32)
-                if "train" in floors:
+                    params, lambda j: ref_new[label][j],
+                    ref_shards["shards"], torch.float32)
+                out["gap_s"] = time.perf_counter() - t_gap
+                if "train" in floors and label == "base":
                     out["params_gap64"] = params_gap(
-                        params, lambda j: ref_new[j].double()
+                        params, lambda j: ref_new[label][j].double()
                         + exact_train["delta"][j].double(), None,
                         torch.float64)
-                out["noise_leaf"] = noise_leaf(params) if noise else None
-        del params, state
-        gc.collect()
-        torch.cuda.empty_cache()
+                out["noise_leaf"] = noise_leaf(params) \
+                    if noise and label == "base" else None
+        del params, state, sharded
+        release()
+        out["reference_s"] = t_ref - t_set
+        out["set_s"] = time.perf_counter() - t_set
         return out
 
-    del params
     ssm._split_proj = counted_split
     try:
         runs = {label: train(set_name, n)
@@ -3677,36 +3792,13 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
     finally:
         ssm._split_proj = split_proj
     ref_new = exact_train = None        # step 1's references, on the host
-    mine_ref.clear()
+    ref_shards["shards"] = []
     gc.collect()
-
-    # serving on the same weights: the sharded prefill into a cache placed
-    # by cache_shardings of the decode shape, then greedy decode steps
-    params = initial()
-    pf, _, p_meta = build_jitted(cfg, mesh, InputShape(
-        "spmd-prefill", cache_len, serve_batch, "prefill"))
-    df, _, d_meta = build_jitted(cfg, mesh, InputShape(
-        "spmd-decode", cache_len, serve_batch, "decode"))
-    _, pb_sh = p_meta["in_shardings"]
-    _, c_sh, t_sh = d_meta["in_shardings"]
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    spmd.reset_staged_counts()
-    dist.barrier()
-    t0 = time.perf_counter()
-    with use_mesh(mesh):
-        logits, cache = pf(params, shard_tree(prompt, pb_sh))
-    torch.cuda.synchronize(dev)
-    serve = {"prefill_s": time.perf_counter() - t0,
-             "prefill_staged": spmd.staged_counts(), "decode_ms": [],
-             "tokens": []}
-    full = logits.full_tensor()
-    got_logits = [real(full)]
 
     def placements(tree):
         return {k: [str(p) for p in v.placements]
                 for k, v in leaves_by_path(tree).items()}
-    cache_pl, want_pl = placements(cache), placements(c_sh)
+
     # the staged bytes of the attention over the cache's K/V shards in a
     # decode step (q cut to them, the partial scores' sums, the output's
     # gather), beside the K/V a rank holds
@@ -3717,41 +3809,6 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
         out = attend(*args, **kwargs)
         attend_bytes[0] += staged_bytes() - before
         return out
-    attention.attend_by_head_dim = counted_attend
-    try:
-        for i in range(n_new):
-            tok = greedy(full)
-            serve["tokens"].append(tok[:, 0].tolist())
-            spmd.reset_staged_counts()
-            attend_bytes[0] = 0
-            mode = CommDebugMode()
-            dist.barrier()
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            with use_mesh(mesh), mode:
-                logits, cache = df(params, cache, distribute(tok, t_sh))
-            torch.cuda.synchronize(dev)
-            serve["decode_ms"].append((time.perf_counter() - t0) * 1e3)
-            if i == 1:                  # a steady step's collectives
-                serve["decode_collectives"] = comm_counts(mode)
-                serve["decode_staged"] = spmd.staged_counts()
-                serve["decode_attention_staged_bytes"] = attend_bytes[0]
-            full = logits.full_tensor()
-            got_logits.append(real(full))
-    finally:
-        attention.attend_by_head_dim = attend
-    launches = launch_counts()
-    serve["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    serve["cache_placements"] = {k: v for k, v in cache_pl.items()
-                                 if k != "pos"}
-    serve["cache_placements_want"] = {k: v for k, v in want_pl.items()
-                                      if k != "pos"}
-    serve["decode_placements"] = {k: v for k, v in placements(cache).items()
-                                  if k != "pos"}
-    serve["pos"] = int(cache["pos"].full_tensor())
-    serve["cache_bytes"] = {
-        k: v.to_local().numel() * v.to_local().element_size()
-        for k, v in leaves_by_path(cache).items() if k != "pos"}
 
     def shard(d):
         from torch.distributed.tensor._utils import (
@@ -3760,24 +3817,95 @@ def spmd_lm_rank(rank, dev, cfg, train_shape, rule_sets, serve_shape,
             d.shape, d.device_mesh, d.placements)
         return {"values": d.to_local().cpu().numpy(),
                 "offset": tuple(int(o) for o in offset)}
-    serve["cache_shards"] = {k: shard(v) for k, v in
-                             leaves_by_path(cache).items() if k != "pos"}
-    if rank == 0:
-        serve["logits"] = got_logits
-    if "serve" in floors:
-        serve.update(cache_to_exact(cache, c_sh, exact_serve, coords, rank))
+
+    def serve_set(set_name, floor):
+        """Serving on the same weights under ``set_name``'s config: the
+        sharded prefill into a cache placed by cache_shardings of the
+        decode shape, then greedy decode steps; with ``floor``, each cache
+        shard's distance from rank 0's float64 serving too."""
+        ov = overrides.get(set_name) or {}
+        c = config(set_name)
+        pf, _, p_meta = build_jitted(c, mesh, InputShape(
+            "spmd-prefill", cache_len, serve_batch, "prefill"),
+            param_overrides=ov.get("param_overrides"))
+        df, _, d_meta = build_jitted(c, mesh, InputShape(
+            "spmd-decode", cache_len, serve_batch, "decode"),
+            param_overrides=ov.get("param_overrides"))
+        s_p_sh, pb_sh = p_meta["in_shardings"]
+        _, c_sh, t_sh = d_meta["in_shardings"]
+        params = initial(s_p_sh)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        spmd.reset_staged_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            logits, cache = pf(params, shard_tree(prompt, pb_sh))
+        torch.cuda.synchronize(dev)
+        serve = {"prefill_s": time.perf_counter() - t0,
+                 "prefill_staged": spmd.staged_counts(), "decode_ms": [],
+                 "tokens": []}
+        full = logits.full_tensor()
+        got_logits = [real(full)]
+        cache_pl, want_pl = placements(cache), placements(c_sh)
+        attention.attend_by_head_dim = counted_attend
+        try:
+            for i in range(n_new):
+                tok = greedy(full)
+                serve["tokens"].append(tok[:, 0].tolist())
+                spmd.reset_staged_counts()
+                attend_bytes[0] = 0
+                mode = CommDebugMode()
+                dist.barrier()
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                with use_mesh(mesh), mode:
+                    logits, cache = df(params, cache, distribute(tok, t_sh))
+                torch.cuda.synchronize(dev)
+                serve["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+                if i == 1:              # a steady step's collectives
+                    serve["decode_collectives"] = comm_counts(mode)
+                    serve["decode_staged"] = spmd.staged_counts()
+                    serve["decode_attention_staged_bytes"] = attend_bytes[0]
+                full = logits.full_tensor()
+                got_logits.append(real(full))
+        finally:
+            attention.attend_by_head_dim = attend
+        serve["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        serve["cache_placements"] = {k: v for k, v in cache_pl.items()
+                                     if k != "pos"}
+        serve["cache_placements_want"] = {k: v for k, v in want_pl.items()
+                                          if k != "pos"}
+        serve["decode_placements"] = {k: v for k, v in
+                                      placements(cache).items() if k != "pos"}
+        serve["pos"] = int(cache["pos"].full_tensor())
+        serve["cache_bytes"] = {
+            k: v.to_local().numel() * v.to_local().element_size()
+            for k, v in leaves_by_path(cache).items() if k != "pos"}
+        serve["cache_shards"] = {k: shard(v) for k, v in
+                                 leaves_by_path(cache).items() if k != "pos"}
         if rank == 0:
-            serve["logit_gaps64"] = [
-                float(np.abs(g - w).max() / np.abs(w).max())
-                for g, w in zip(got_logits, exact_serve["logits"])]
-    del params, cache, logits, full
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"rank": rank, "coordinate": mesh.coordinate(),
-            "argument_bytes": arg_bytes,
-            "argument_bytes_total": sum(arg_bytes.values()),
-            "argument_bytes_want": want, "train": runs, "serve": serve,
-            "launches": launches, "reference": ref,
+            serve["logits"] = got_logits
+        if floor:
+            serve.update(cache_to_exact(cache, c_sh, exact_serve, coords,
+                                        rank))
+            if rank == 0:
+                serve["logit_gaps64"] = [
+                    float(np.abs(g - w).max() / np.abs(w).max())
+                    for g, w in zip(got_logits, exact_serve["logits"])]
+        del params, cache, logits, full
+        release()
+        return serve
+
+    t_serve = time.perf_counter()
+    serves = {label: serve_set(set_name, "serve" in floors
+                               and label == "default")
+              for label, set_name in serve_sets.items()}
+    serve_s = time.perf_counter() - t_serve
+    launches = {n: c - ref_launches[n] for n, c in launch_counts().items()}
+    return {"rank": rank, "coordinate": mesh.coordinate(), "train": runs,
+            "serve": serves, "launches": launches, "reference": ref,
+            "seconds": {"before_train": before_train_s, "serve": serve_s},
             "n_params": model.count_params(cfg), "cfg": cfg.name}
 
 
@@ -3785,8 +3913,10 @@ def spmd_moe_rank(rank, dev):
     """One rank of the spmd-moe phase (see :func:`run_spmd_moe_path`)."""
     return spmd_lm_rank(
         rank, dev, spmd_moe_cfg(), (BATCH, SEQ),
-        {"default": (None, SPMD_MOE_STEPS), "ep": ("ep", 1)},
-        (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW))
+        {"default": (None, SPMD_MOE_STEPS), "ep": ("ep", 1),
+         **{name: (name, 1) for name in SPMD_MOE_SETS}},
+        (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW),
+        serve_sets={"default": None, "moe_ragged": "moe_ragged"})
 
 
 def spmd_hybrid_rank(rank, dev):
@@ -3814,7 +3944,7 @@ def spmd_encdec_rank(rank, dev):
     return spmd_lm_rank(
         rank, dev, resolve(SPMD_ENCDEC_ARCH).full,
         (SPMD_ENCDEC_BATCH, SPMD_ENCDEC_SEQ),
-        {"default": (None, SPMD_ENCDEC_STEPS)},
+        {"default": (None, SPMD_ENCDEC_STEPS), "seqpar": ("seqpar", 1)},
         (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW))
 
 
@@ -3862,22 +3992,23 @@ def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
     ref = ranks[0]["reference"]
     fails = []
     for r in ranks:
-        if r["argument_bytes_total"] != r["argument_bytes_want"]:
-            fails.append(f"rank {r['rank']}: argument bytes "
-                         f"{r['argument_bytes']} vs "
-                         f"{r['argument_bytes_want']}")
+        for rules, run in r["train"].items():
+            if run["argument_bytes_total"] != run["argument_bytes_want"]:
+                fails.append(f"rank {r['rank']}, {rules}: argument bytes "
+                             f"{run['argument_bytes']} vs "
+                             f"{run['argument_bytes_want']}")
     gaps, gaps64 = {}, {}
     for rules, run in ranks[0]["train"].items():
+        want = ref["train"][run["reference"]]
         if not all(math.isfinite(x) for x in run["losses"]):
             fails.append(f"{rules}: non-finite loss {run['losses']}")
         gaps[rules] = {
-            "loss": abs(run["losses"][0] - ref["train"]["loss"])
-            / ref["train"]["loss"],
-            "grad_norm": abs(run["grad_norms"][0] - ref["train"]["grad_norm"])
-            / ref["train"]["grad_norm"],
+            "loss": abs(run["losses"][0] - want["loss"]) / want["loss"],
+            "grad_norm": abs(run["grad_norms"][0] - want["grad_norm"])
+            / want["grad_norm"],
             "params": run["params_rel_gap"]}
         floors = ref.get("train_floor") or {}
-        if floors:
+        if floors and "params_gap64" in run:
             gaps64[rules] = {
                 "loss": abs(run["losses"][0] - ref["train64"]["loss"])
                 / ref["train64"]["loss"],
@@ -3899,80 +4030,30 @@ def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
                          f"entries within lr x sqrt(size), the other rows' "
                          f"residual {SPMD_NOISE_RESIDUAL}, each side's RMS "
                          f"move above 0 and at most lr)")
-    serve = ranks[0]["serve"]
-    want_logits = ref["serve"]["logits"]
-    logit_gaps = [float(np.abs(g - w).max() / np.abs(w).max())
-                  for g, w in zip(serve["logits"], want_logits)]
-    s_floor = ref.get("floor") or {"logits": [None] * len(logit_gaps),
-                                   "cache": {}}
-    logit_gaps64 = serve.get("logit_gaps64") or [None] * len(logit_gaps)
-    if len(logit_gaps) != serve_shape[3] + 1 or not all(
-            within(SPMD_LOGIT_GAP, *x) for x in
-            zip(logit_gaps, s_floor["logits"], logit_gaps64)):
-        fails.append(f"served logits: {logit_gaps} (limit {SPMD_LOGIT_GAP};"
-                     f" float64: {logit_gaps64}, floor "
-                     f"{s_floor['logits']})")
-    if serve["tokens"] != ref["serve"]["tokens"]:
-        fails.append(f"greedy tokens {serve['tokens']} vs "
-                     f"{ref['serve']['tokens']}")
-    cache_gaps, group_gaps = {}, {}
-    for r in ranks:
-        s = r["serve"]
-        if not (s["cache_placements"] == s["decode_placements"]
-                == s["cache_placements_want"]) or \
-                s["pos"] != ref["serve"]["pos"]:
-            fails.append(f"rank {r['rank']}: cache placed "
-                         f"{s['cache_placements']} / "
-                         f"{s['decode_placements']} at pos {s['pos']}, want "
-                         f"{s['cache_placements_want']} at "
-                         f"{ref['serve']['pos']}")
-        if set(s["cache_shards"]) != set(ref["serve"]["cache"]):
-            fails.append(f"rank {r['rank']}: cache leaves "
-                         f"{sorted(s['cache_shards'])}")
-            continue
-        for k, got in s["cache_shards"].items():
-            w = ref["serve"]["cache"][k]
-            sl = tuple(slice(o, o + n) for o, n in
-                       zip(got["offset"], got["values"].shape))
-            cache_gaps[k] = max(cache_gaps.get(k, 0.0), float(
-                np.abs(got["values"] - w[sl]).max() / np.abs(w).max()))
-            group_gaps[k] = [max(old, float(np.abs(a - b).max() / np.abs(
-                wg).max())) for old, a, b, wg in zip(
-                    group_gaps.get(k, [0.0] * w.shape[0]), got["values"],
-                    w[sl], w)]
-    # where the floor was measured, each leaf group by group (the floor
-    # grows with depth) and against float64 too; else each leaf whole
-    cache_gaps64 = {}
-    if s_floor["cache"]:
-        norms = ranks[0]["serve"]["cache_norms64"]
-        cache_gaps64 = {k: [max(r["serve"]["cache_abs64"][k][g]
-                                for r in ranks) / n
-                            for g, n in enumerate(norms[k])]
-                        for k in norms}
-        if set(cache_gaps64) != set(group_gaps) or not all(
-                within(SPMD_CACHE_GAP, *x) for k, gg in group_gaps.items()
-                for x in zip(gg, s_floor["cache"][k], cache_gaps64[k])):
-            fails.append(f"cache shards by group: {group_gaps} (limit "
-                         f"{SPMD_CACHE_GAP}; float64: {cache_gaps64}, floor "
-                         f"{s_floor['cache']})")
-    elif not max(cache_gaps.values(), default=math.inf) <= SPMD_CACHE_GAP:
-        fails.append(f"cache shards: {cache_gaps} (limit {SPMD_CACHE_GAP})")
+    served = {name: serve_gates(name, ranks, ref, serve_shape, fails)
+              for name in ranks[0]["serve"]}
     launches = {n: sum(r["launches"][n] for r in ranks) for n in
                 ranks[0]["launches"]}
     card = card_line()
-    dec = sorted(serve["decode_ms"])
+    first = next(iter(ranks[0]["train"]))
     report = {
         "card": card, "cfg": ranks[0]["cfg"], "n_params":
         ranks[0]["n_params"], "cut": cut,
         "mesh": "(2, 2) data x model, 4 ranks on one card",
         "backend": spmd.STAGED, "batch": train_shape[0],
         "seq": train_shape[1],
-        "argument_bytes_per_rank": ranks[0]["argument_bytes_want"],
+        "argument_bytes_per_rank": ranks[0]["train"][first][
+            "argument_bytes_want"],
+        "argument_bytes_per_rank_by_rules": {
+            rules: run["argument_bytes_want"]
+            for rules, run in ranks[0]["train"].items()},
         "reference": {"train": ref["train"],
                       "peak_mem_gb": ref["peak_mem_gb"]},
         "train": {rules: {k: run[k] for k in
                           ("losses", "grad_norms", "step_s", "peak_mem_gb",
-                           "peak_reserved_gb", "params_rel_gap")}
+                           "peak_reserved_gb", "params_rel_gap",
+                           "reference", "reference_s", "setup_s", "gap_s",
+                           "set_s")}
                   for rules, run in ranks[0]["train"].items()},
         "rel_gaps": gaps, "limit": SPMD_GAP,
         "train_floor": ref.get("train_floor"), "rel_gaps64": gaps64,
@@ -3985,37 +4066,104 @@ def run_spmd_lm_path(dev, label, rank_fn, train_shape, serve_shape, cut):
         "peak_mem_gb_by_rank": {
             rules: [r["train"][rules]["peak_mem_gb"] for r in ranks]
             for rules in ranks[0]["train"]},
-        "serve": {"batch": serve_shape[0], "prompt": serve_shape[1],
-                  "cache_len": serve_shape[2], "new": serve_shape[3],
-                  "prefill_s": serve["prefill_s"],
-                  "prefill_staged": serve["prefill_staged"],
-                  "decode_ms_median": dec[len(dec) // 2],
-                  "decode_ms": serve["decode_ms"],
-                  "decode_collectives_rank_0": serve["decode_collectives"],
-                  "decode_staged_rank_0": serve["decode_staged"],
-                  "decode_attention_staged_bytes_rank_0":
-                  serve["decode_attention_staged_bytes"],
-                  "matrix_memory_bytes_rank_0": sum(
-                      b for k, b in serve["cache_bytes"].items()
-                      if k.endswith("/C")),
-                  "cross_kv_bytes_rank_0": sum(
-                      b for k, b in serve["cache_bytes"].items()
-                      if k.endswith(("/xk", "/xv"))),
-                  "peak_mem_gb_by_rank": [r["serve"]["peak_mem_gb"]
-                                          for r in ranks],
-                  "max_logit_gap": max(logit_gaps), "limit": SPMD_LOGIT_GAP,
-                  "logit_gaps": logit_gaps, "logit_gaps64": logit_gaps64,
-                  "cache_shard_gaps64_by_group": cache_gaps64,
-                  "tokens_equal": serve["tokens"] == ref["serve"]["tokens"],
-                  "cache_shard_gaps": cache_gaps,
-                  "cache_shard_gaps_by_group": group_gaps,
-                  "fp32_floor": ref.get("floor"),
-                  "cache_placements": serve["cache_placements"]},
+        "serve": served["default"] if len(served) == 1 else served,
+        "seconds_rank_0": ranks[0]["seconds"],
         "wall_s": wall, "launches": launches, "failed": fails}
     print(f"{label} path: " + json.dumps(report))
     if fails:
         raise AssertionError(f"{label}: " + "; ".join(fails))
     return launches
+
+
+def serve_gates(name, ranks, ref, serve_shape, fails) -> dict:
+    """The gates of :func:`run_spmd_lm_path` on the serving labelled
+    ``name``, each miss appended to ``fails``; returns its records."""
+    import numpy as np
+    serve = ranks[0]["serve"][name]
+    want = ref["serve"][name]
+    where = "" if name == "default" else f"{name}: "
+    logit_gaps = [float(np.abs(g - w).max() / np.abs(w).max())
+                  for g, w in zip(serve["logits"], want["logits"])]
+    s_floor = (ref.get("floor") if name == "default" else None) or {
+        "logits": [None] * len(logit_gaps), "cache": {}}
+    logit_gaps64 = serve.get("logit_gaps64") or [None] * len(logit_gaps)
+    if len(logit_gaps) != serve_shape[3] + 1 or not all(
+            within(SPMD_LOGIT_GAP, *x) for x in
+            zip(logit_gaps, s_floor["logits"], logit_gaps64)):
+        fails.append(f"{where}served logits: {logit_gaps} (limit "
+                     f"{SPMD_LOGIT_GAP}; float64: {logit_gaps64}, floor "
+                     f"{s_floor['logits']})")
+    if serve["tokens"] != want["tokens"]:
+        fails.append(f"{where}greedy tokens {serve['tokens']} vs "
+                     f"{want['tokens']}")
+    cache_gaps, group_gaps = {}, {}
+    for r in ranks:
+        s = r["serve"][name]
+        if not (s["cache_placements"] == s["decode_placements"]
+                == s["cache_placements_want"]) or s["pos"] != want["pos"]:
+            fails.append(f"{where}rank {r['rank']}: cache placed "
+                         f"{s['cache_placements']} / "
+                         f"{s['decode_placements']} at pos {s['pos']}, want "
+                         f"{s['cache_placements_want']} at {want['pos']}")
+        if set(s["cache_shards"]) != set(want["cache"]):
+            fails.append(f"{where}rank {r['rank']}: cache leaves "
+                         f"{sorted(s['cache_shards'])}")
+            continue
+        for k, got in s["cache_shards"].items():
+            w = want["cache"][k]
+            sl = tuple(slice(o, o + n) for o, n in
+                       zip(got["offset"], got["values"].shape))
+            cache_gaps[k] = max(cache_gaps.get(k, 0.0), float(
+                np.abs(got["values"] - w[sl]).max() / np.abs(w).max()))
+            group_gaps[k] = [max(old, float(np.abs(a - b).max() / np.abs(
+                wg).max())) for old, a, b, wg in zip(
+                    group_gaps.get(k, [0.0] * w.shape[0]), got["values"],
+                    w[sl], w)]
+    # where the floor was measured, each leaf group by group (the floor
+    # grows with depth) and against float64 too; else each leaf whole
+    cache_gaps64 = {}
+    if s_floor["cache"]:
+        norms = serve["cache_norms64"]
+        cache_gaps64 = {k: [max(r["serve"][name]["cache_abs64"][k][g]
+                                for r in ranks) / n
+                            for g, n in enumerate(norms[k])]
+                        for k in norms}
+        if set(cache_gaps64) != set(group_gaps) or not all(
+                within(SPMD_CACHE_GAP, *x) for k, gg in group_gaps.items()
+                for x in zip(gg, s_floor["cache"][k], cache_gaps64[k])):
+            fails.append(f"{where}cache shards by group: {group_gaps} "
+                         f"(limit {SPMD_CACHE_GAP}; float64: {cache_gaps64}, "
+                         f"floor {s_floor['cache']})")
+    elif not max(cache_gaps.values(), default=math.inf) <= SPMD_CACHE_GAP:
+        fails.append(f"{where}cache shards: {cache_gaps} (limit "
+                     f"{SPMD_CACHE_GAP})")
+    dec = sorted(serve["decode_ms"])
+    return {"batch": serve_shape[0], "prompt": serve_shape[1],
+            "cache_len": serve_shape[2], "new": serve_shape[3],
+            "prefill_s": serve["prefill_s"],
+            "prefill_staged": serve["prefill_staged"],
+            "decode_ms_median": dec[len(dec) // 2],
+            "decode_ms": serve["decode_ms"],
+            "decode_collectives_rank_0": serve["decode_collectives"],
+            "decode_staged_rank_0": serve["decode_staged"],
+            "decode_attention_staged_bytes_rank_0":
+            serve["decode_attention_staged_bytes"],
+            "matrix_memory_bytes_rank_0": sum(
+                b for k, b in serve["cache_bytes"].items()
+                if k.endswith("/C")),
+            "cross_kv_bytes_rank_0": sum(
+                b for k, b in serve["cache_bytes"].items()
+                if k.endswith(("/xk", "/xv"))),
+            "peak_mem_gb_by_rank": [r["serve"][name]["peak_mem_gb"]
+                                    for r in ranks],
+            "max_logit_gap": max(logit_gaps), "limit": SPMD_LOGIT_GAP,
+            "logit_gaps": logit_gaps, "logit_gaps64": logit_gaps64,
+            "cache_shard_gaps64_by_group": cache_gaps64,
+            "tokens_equal": serve["tokens"] == want["tokens"],
+            "cache_shard_gaps": cache_gaps,
+            "cache_shard_gaps_by_group": group_gaps,
+            "fp32_floor": ref.get("floor") if name == "default" else None,
+            "cache_placements": serve["cache_placements"]}
 
 
 def run_spmd_moe_path(dev):
@@ -4025,12 +4173,16 @@ def run_spmd_moe_path(dev):
     this card, joined by the host-staged gloo group.  Trains SPMD_MOE_STEPS
     Adafactor steps of ``build_jitted``'s step on batches BATCH × SEQ of
     ``SyntheticLM`` under the default rules, then step 1 again from the
-    same weights under the ``ep`` set; then serves on the same weights:
-    ``build_jitted``'s sharded prefill of a SPMD_PROMPT-token prompt at
-    batch SPMD_SERVE_BATCH into a SPMD_CACHE_LEN-slot cache, and SPMD_NEW
-    greedy steps of its decode step.  The gates and records are
-    :func:`run_spmd_lm_path`'s.  Returns the ranks' summed launch counts
-    (no codec: all 0)."""
+    same weights under the ``ep`` set and under each of SPMD_MOE_SETS
+    (``moe_w_seqpar`` places the expert weights by its overrides,
+    ``moe_ragged`` runs the ragged dispatch, ``moe._ragged_sharded``),
+    each held to the unsharded step 1 of its own config; then serves on
+    the same weights: ``build_jitted``'s sharded prefill of a
+    SPMD_PROMPT-token prompt at batch SPMD_SERVE_BATCH into a
+    SPMD_CACHE_LEN-slot cache, and SPMD_NEW greedy steps of its decode
+    step, with the capacity dispatch and again with the ragged one.  The
+    gates and records are :func:`run_spmd_lm_path`'s.  Returns the ranks'
+    summed launch counts (no codec: all 0)."""
     return run_spmd_lm_path(
         dev, "spmd-moe", spmd_moe_rank, (BATCH, SEQ),
         (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW),
@@ -4097,7 +4249,10 @@ def run_spmd_encdec_path(dev):
     Trains SPMD_ENCDEC_STEPS Adafactor steps of ``build_jitted``'s step on
     ``SyntheticSeq2Seq`` batches of SPMD_ENCDEC_BATCH × SPMD_ENCDEC_SEQ
     target tokens over ``src_len_for`` frames under the default rules (the
-    cross-attention on each rank's rows and heads); then serves on the
+    cross-attention on each rank's rows and heads), then step 1 again
+    under the ``seqpar`` set (the residual stream's sequence on
+    ``model``, the cross-attention over a sequence-sharded memory); then
+    serves on the
     same weights: the sharded prefill of a SPMD_PROMPT-token target prefix
     over ``src_len_for(SPMD_CACHE_LEN)`` frames at batch SPMD_SERVE_BATCH
     into a SPMD_CACHE_LEN-slot cache, whose self- and cross-attention K/V

@@ -437,6 +437,45 @@ def pinned(t: torch.Tensor) -> torch.Tensor:
     return on_shards(lambda a: a, list(t.placements), t)
 
 
+def gather_sequence(x: torch.Tensor) -> torch.Tensor:
+    """The DTensor ``x`` with every shard of a middle dimension (the
+    sequence of a (batch, sequence, features) activation, which the
+    ``act_seq`` rule shards) gathered, before ``x`` meets a matmul:
+    Megatron's sequence parallelism all-gathers there too.  DTensor in
+    torch 2.11 cannot flatten a sharded middle dimension into a matmul's
+    rows ("Attempted to flatten multiple dimensions").  A plain tensor, or
+    a DTensor with no such shard, passes through."""
+    if not is_dtensor(x) or x.dim() < 3:
+        return x
+    from torch.distributed.tensor import Replicate
+    placements = [Replicate() if p.is_shard() and 0 < p.dim < x.dim() - 1
+                  else p for p in x.placements]
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def scatter_sequence(y: torch.Tensor) -> torch.Tensor:
+    """The DTensor ``y`` (a matmul's (batch, sequence, features) output)
+    with each partial sum on a mesh axis that the ``act_seq`` rule names
+    reduced straight onto that axis's slice of the sequence: Megatron's
+    reduce-scatter after a row-parallel matmul, where the residual stream
+    is sequence-sharded.  Left to the residual's add, DTensor would
+    reduce-scatter inside the add, whose backward then hands the matmul a
+    sequence-sharded gradient that DTensor in torch 2.11 cannot flatten
+    into the matmul's rows.  Anything else passes through."""
+    if not is_dtensor(y) or y.dim() < 3:
+        return y
+    from torch.distributed.tensor import Shard
+    seq = _axes(_current()[1].get("act_seq"))
+    placements = [Shard(1) if p.is_partial() and name in seq else p
+                  for name, p in zip(y.device_mesh.mesh_dim_names,
+                                     y.placements)]
+    if placements == list(y.placements):
+        return y
+    return y.redistribute(y.device_mesh, placements)
+
+
 def on_rows_and_heads(fn, axes, args, specs, out_specs):
     """``fn(*args)`` on each rank's batch rows and heads, as
     :func:`rows_and_heads` names the mesh axes.  ``specs`` (one per

@@ -33,7 +33,8 @@ from repro_torch.configs.base import InputShape, ModelCfg
 from repro_torch.core.opgraph import tree_leaves
 from repro_torch.core.rad import tree_map
 from repro_torch.models import causal_lm, encdec
-from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.optim import (Optimizer, clip_by_global_norm,
+                               distinct_storage)
 from .params import (batch_spec, generic_spec, param_shardings, place_tree,
                      tree_map_with_path, tree_path_str)
 from .sharding import (Mesh, NamedSharding, PartitionSpec as P, is_dtensor,
@@ -187,17 +188,23 @@ def loss_and_grad(cfg: ModelCfg, params, batch):
 def make_train_step(cfg: ModelCfg, optimizer: Optimizer,
                     grad_clip: float = 1.0) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm", "ce", "aux"})``."""
+    {"loss", "grad_norm", "ce", "aux"})``.  The step owns the gradients
+    it makes: it clips them where they are and lets the optimizer compute
+    in their memory (``Optimizer.update(..., consume_grads=True)``), so it
+    holds two parameter-sized trees, as the JAX package's jitted step with
+    its donated buffers does, not three; the numbers are the functional
+    formula's."""
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = loss_and_grad(cfg, params, batch)
+        grads = distinct_storage(grads)
         if grad_clip:
-            # rebinding drops the unclipped tree before the update
             grads, gnorm = clip_by_global_norm(grads, grad_clip)
         else:
             gnorm = replicate_like(torch.zeros((), dtype=torch.float32,
                                                device=loss.device), loss)
-        params, opt_state = optimizer.update(grads, opt_state, params)
+        params, opt_state = optimizer.update(grads, opt_state, params,
+                                             consume_grads=True)
         out_metrics = {"loss": loss, "grad_norm": gnorm}
         out_metrics.update(metrics)
         return params, opt_state, out_metrics
@@ -271,9 +278,12 @@ def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
     cache a prefill returns).
 
     ``fn`` is the eager step.  Nothing is jitted: PyTorch runs the step as
-    written, with no trace to compile against the shardings.  Nothing is
-    donated: the step returns new tensors and writes none of its inputs, so
-    there is no buffer for it to reuse.  ``remat`` changes nothing, as in
+    written, with no trace to compile against the shardings.  No input is
+    donated: the step returns new tensors and writes none of its inputs.
+    The train step writes its new parameters into the memory of the
+    gradients it made (:func:`make_train_step`), so it holds two
+    parameter-sized trees, as JAX's with its donated buffers does, not
+    three.  ``remat`` changes nothing, as in
     JAX (the model checkpoints its blocks by ``cfg.remat``).
 
     On a process mesh (``launch.mesh.make_process_mesh``) every step takes
@@ -284,19 +294,12 @@ def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
     ``meta["cache_sh"]``; the logits and metrics stay where the step left
     them); a plain tensor among the arguments raises.  Run it under
     ``use_mesh(mesh)`` for the model's ``constrain`` calls, as the JAX
-    package's callers do.  Every family runs there (the moe family with
-    ``moe_impl="capacity"``; the ragged and loop dispatches raise
-    ``NotImplementedError``, ROADMAP Q1.6f).  A mesh of devices in
+    package's callers do.  Every family and every MoE dispatch runs
+    there.  A mesh of devices in
     one process whose positions hold several distinct devices raises
     ``NotImplementedError``: placing shards across them needs the process
     mesh."""
     del remat
-    if mesh.is_process_mesh and cfg.family == "moe" \
-            and cfg.moe_impl != "capacity":
-        raise NotImplementedError(
-            f"build_jitted on {mesh!r}: {cfg.name} with moe_impl="
-            f"{cfg.moe_impl!r}; only the capacity dispatch is sharded over "
-            f"processes (ROADMAP Q1.6f)")
     if not mesh.is_process_mesh and len(mesh.distinct_devices()) > 1:
         raise NotImplementedError(
             f"build_jitted on {mesh!r}: the port runs a step on one device "

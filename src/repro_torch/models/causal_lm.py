@@ -49,8 +49,8 @@ import torch
 from repro_torch.configs.base import ModelCfg
 from repro_torch.core.opgraph import split_generator, tree_leaves
 from repro_torch.core.rad import tree_map
-from repro_torch.distributed.sharding import (constrain, is_dtensor,
-                                              replicate_like)
+from repro_torch.distributed.sharding import (constrain, gather_sequence,
+                                              is_dtensor, replicate_like)
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
@@ -322,10 +322,6 @@ def _dense_block_decode(cfg, p, x, kvc, pos, window):
 
 
 def _moe_ffn(cfg, p, h):
-    if is_dtensor(h) and cfg.moe_impl != "capacity":
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl={cfg.moe_impl!r} on a process mesh; only "
-            f"the capacity dispatch is sharded (the others: ROADMAP Q1.6f)")
     return moe_mod.moe_apply(p["moe"], h, cfg.top_k, cfg.moe_impl,
                              cfg.capacity_factor)
 
@@ -641,7 +637,7 @@ def _shared_blocks(params, n_groups: int) -> List[Dict[str, Any]]:
 
 def _head(cfg, params, x):
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["table"].to(x.dtype).T
+        logits = gather_sequence(x) @ params["embed"]["table"].to(x.dtype).T
     else:
         logits = dense(params["head"], x)
     if cfg.vocab_padded != cfg.vocab:

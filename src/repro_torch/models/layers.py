@@ -18,8 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
-from repro_torch.distributed.sharding import (is_dtensor, on_shards,
-                                              replicate_like)
+from repro_torch.distributed.sharding import (gather_sequence, is_dtensor,
+                                              on_shards, replicate_like,
+                                              scatter_sequence)
 
 Params = Dict[str, torch.Tensor]
 
@@ -81,7 +82,10 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"].to(x.dtype)
+    """``x @ w``; on DTensors with a sequence-sharded ``x`` gathered first
+    and a partial-sum output scattered onto the sequence
+    (``sharding.gather_sequence`` / ``scatter_sequence``)."""
+    return scatter_sequence(gather_sequence(x) @ p["w"].to(x.dtype))
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,

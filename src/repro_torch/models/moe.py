@@ -14,6 +14,10 @@ sufficient (tested against each other and against the JAX package):
                      sort, batched einsum over experts.  Tokens beyond
                      capacity are dropped (``capacity_factor`` sets C).
 
+On DTensors (a process mesh) the ragged and capacity paths share one
+sharded dispatch, :func:`_sharded_dispatch`; the loop runs as plain
+DTensor ops.
+
 Router: softmax over expert logits, top-k, renormalized gates, plus the
 standard load-balance auxiliary loss (fraction·probability product).
 
@@ -30,7 +34,7 @@ expert-sorted order by rounding only.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,7 +43,7 @@ from repro_torch.core.opgraph import split_generator
 from repro_torch.distributed.sharding import (constrain, is_dtensor,
                                               local_offset, logical_to_spec,
                                               on_shards)
-from .layers import _normal, dense_init
+from .layers import _normal, dense, dense_init
 
 
 class MoEOut(NamedTuple):
@@ -131,7 +135,10 @@ def _combine(contrib: torch.Tensor, order: torch.Tensor, T: int,
 
 def moe_ragged(p, x: torch.Tensor, top_k: int) -> MoEOut:
     """Exact top-k MoE, tokens grouped by expert: one matmul per non-empty
-    group and projection (the group sizes are read on the host)."""
+    group and projection (the group sizes are read on the host).  On
+    DTensors see :func:`_ragged_sharded`."""
+    if is_dtensor(x):
+        return _ragged_sharded(p, x, top_k)
     B, S, d = x.shape
     x2 = x.reshape(-1, d)
     T = x2.shape[0]
@@ -157,13 +164,15 @@ def moe_ragged(p, x: torch.Tensor, top_k: int) -> MoEOut:
 class CapacityPlan(NamedTuple):
     """Where each (token, choice) goes, in expert-sorted order: its
     expert, its slot within the expert (``C``, a spare slot, when it is
-    dropped), whether it is kept, and the (token, choice) order."""
+    dropped), whether it is kept, and the (token, choice) order; and how
+    many entries each expert was routed."""
     order: torch.Tensor       # (T*K,) flat (token, choice) index, sorted
     token_of: torch.Tensor    # (T*K,) token of each sorted entry
     sorted_e: torch.Tensor    # (T*K,) expert of each sorted entry
     pos_c: torch.Tensor       # (T*K,) slot, 0 where dropped
     slot: torch.Tensor        # (T*K,) slot, C where dropped
     keep: torch.Tensor        # (T*K,) bool
+    counts: torch.Tensor      # (E,) entries routed to each expert
 
 
 def capacity_plan(idx: torch.Tensor, top_k: int, E: int,
@@ -178,7 +187,7 @@ def capacity_plan(idx: torch.Tensor, top_k: int, E: int,
     pos = torch.arange(idx.numel(), device=idx.device) - starts[sorted_e]
     keep = pos < C
     return CapacityPlan(order, token_of, sorted_e, torch.where(keep, pos, 0),
-                        torch.where(keep, pos, C), keep)
+                        torch.where(keep, pos, C), keep, counts)
 
 
 def moe_capacity(p, x: torch.Tensor, top_k: int,
@@ -223,13 +232,59 @@ def moe_capacity(p, x: torch.Tensor, top_k: int,
 def _capacity_sharded(p, x, top_k: int, C: int) -> MoEOut:
     """Static-capacity dispatch on DTensors, as GSPMD runs the JAX
     package's under its two ``constrain(..., ("expert_dispatch", None,
-    None))`` calls.
+    None))`` calls: :func:`_sharded_dispatch` into (E, C, d) slots, each
+    kept (token, choice) at its expert and its position within it, the
+    experts batched in one einsum a projection."""
+    return _sharded_dispatch(p, x, top_k, C, ragged=False)
+
+
+def _ragged_sharded(p, x, top_k: int) -> MoEOut:
+    """The ragged dispatch on DTensors: :func:`_sharded_dispatch` with no
+    entry dropped, each rank's rows grouped by expert.  The JAX package's
+    ``moe_ragged`` makes no ``constrain`` call, so GSPMD places its
+    ``ragged_dot``s freely; here each mesh axis takes the mode the
+    capacity dispatch would (``E`` under the ``expert_dispatch`` rule)."""
+    T = x.shape[0] * x.shape[1]
+    return _sharded_dispatch(p, x, top_k, T * top_k, ragged=True)
+
+
+def _expert_blocks(E: int, mesh, placements) -> List[Tuple[int, int]]:
+    """[start, stop) of the experts on each shard of a dimension of E
+    placed by ``placements``, in the shards' order: ``Shard(0)`` on an
+    axis cuts each block into chunks of ceil(len / size), as DTensor
+    does."""
+    from torch.distributed.tensor import Shard
+    blocks = [(0, E)]
+    for size, pl in zip(mesh.shape, placements):
+        if pl == Shard(0):
+            blocks = [(min(a + i * c, b), min(a + (i + 1) * c, b))
+                      for a, b in blocks for c in [-(-(b - a) // size)]
+                      for i in range(size)]
+    return blocks
+
+
+def _grouped(buf: torch.Tensor, w: torch.Tensor, sizes) -> torch.Tensor:
+    """Rows (1, R, k) grouped by expert, ``sizes[j]`` rows of expert j in
+    order, each group times its expert's ``w[j]`` (w: (n_e, k, n)): one
+    matmul a group; the rows after the last group are zero.  An empty
+    group still multiplies, so every expert's weight has a gradient."""
+    rows, parts, lo = buf[0], [], 0
+    for wj, n in zip(w.unbind(0), sizes):
+        parts.append(rows[lo:lo + n] @ wj.to(rows.dtype))
+        lo += n
+    parts.append(rows.new_zeros((rows.shape[0] - lo, w.shape[-1])))
+    return torch.cat(parts)[None]
+
+
+def _sharded_dispatch(p, x, top_k: int, C: int, ragged: bool) -> MoEOut:
+    """The capacity (``ragged=False``) and ragged dispatches on DTensors.
 
     The routing is tiny and runs whole on every rank, on the gathered
     tokens: each (token, choice)'s position within its expert counts over
-    all T tokens of the global batch, so the same entries are dropped on
-    any mesh, and the router's aux loss averages over all T.  The expert
-    FFN then runs on local shards, each mesh axis in one of four modes:
+    all T tokens of the global batch, so the same entries are dropped at
+    capacity ``C`` on any mesh, and the router's aux loss averages over all
+    T.  The expert FFN then runs on local shards of a buffer of (blocks,
+    slots, d), each mesh axis in one of four modes:
 
     * ``E`` — the axis shards the experts (the ``expert_dispatch`` rule
       names it, as the ``ep`` set does, or the weights are placed so):
@@ -237,12 +292,21 @@ def _capacity_sharded(p, x, top_k: int, C: int) -> MoEOut:
       those; the combine's partial sums meet in a reduction;
     * ``d`` — the weights' model dimension is sharded (the baseline's
       FSDP rule puts it on ``data``): the contraction is split, the
-      (E, C, ff) pre-activations are summed over the axis, and the output
-      columns stay split;
+      (blocks, slots, ff) pre-activations are summed over the axis, and
+      the output columns stay split;
     * ``f`` — the expert FFN width is sharded (``model`` in the baseline):
       each rank computes its slice of the width, and the output is a
       partial sum;
     * ``R`` — replicated: every rank computes the same.
+
+    The two dispatches differ in their buffer and its matmul alone.  The
+    capacity's is (E, C, d): a block an expert, a kept entry at its
+    position within it, the experts batched in one einsum.  The ragged one
+    keeps every entry:
+    a block a shard of the experts, which holds their entries grouped by
+    expert in sorted order (as many slots as the fullest shard's entries,
+    the rest zero), one matmul a group; the group sizes are read on the
+    host once a call, from the replicated routing.
 
     Every index write and gather runs on local tensors."""
     from torch.distributed.tensor import Partial, Replicate, Shard
@@ -257,7 +321,7 @@ def _capacity_sharded(p, x, top_k: int, C: int) -> MoEOut:
     def routing(x, w):
         gates, idx, aux = route({"w": w}, x.reshape(T, d), top_k)
         return (gates, aux) + tuple(capacity_plan(idx, top_k, E, C))
-    gates, aux, *plan = on_shards(routing, (rep,) * 8, xr, w)
+    gates, aux, *plan = on_shards(routing, (rep,) * 9, xr, w)
     plan = CapacityPlan(*plan)
 
     modes = _ffn_modes(mesh, p["gate"].placements)
@@ -268,27 +332,52 @@ def _capacity_sharded(p, x, top_k: int, C: int) -> MoEOut:
         return tuple(by_mode[m] for m in modes)
 
     buf_pl = pl(E=S0, d=R, f=R, R=R)
-    e0, n_e = local_offset((E, C, d), mesh, buf_pl, 0)
+    if ragged:
+        sizes = plan.counts.to_local().tolist()
+        blocks = _expert_blocks(E, mesh, buf_pl)
+        n_slots = max(1, max(sum(sizes[a:b]) for a, b in blocks))
+        b0, n_b = local_offset((len(blocks), n_slots, d), mesh, buf_pl, 0)
+        e_lo, e_hi = blocks[b0]
+        first, n_rows = sum(sizes[:e_lo]), sum(sizes[e_lo:e_hi])
+    else:
+        n_slots = C
+        b0, n_b = local_offset((E, C, d), mesh, buf_pl, 0)
 
-    def dispatch(x, sorted_e, slot, token_of):
-        le = sorted_e - e0
-        mine = (le >= 0) & (le < n_e)
-        buf = x.new_zeros((n_e, C + 1, d))
-        buf[torch.where(mine, le, 0), torch.where(mine, slot, C)] = \
-            x.reshape(T, d)[token_of]
-        return buf[:, :C]
-    buf = on_shards(dispatch, buf_pl, xr, plan.sorted_e, plan.slot,
-                    plan.token_of,
+    def landing(sorted_e, pos_c, keep, b0, n_b):
+        """Each sorted (token, choice)'s block and slot in this rank's
+        buffer, whose blocks are [b0, b0 + n_b), and whether it lands
+        there."""
+        if ragged:
+            row = torch.arange(T * top_k, device=sorted_e.device) - first
+            mine = (row >= 0) & (row < n_rows)
+            return torch.zeros_like(row), torch.where(mine, row, 0), mine
+        blk = sorted_e - b0
+        mine = (blk >= 0) & (blk < n_b) & keep
+        return torch.where(mine, blk, 0), pos_c, mine
+
+    def dispatch(x, sorted_e, pos_c, keep, token_of):
+        blk, slot, mine = landing(sorted_e, pos_c, keep, b0, n_b)
+        buf = x.new_zeros((n_b, n_slots + 1, d))
+        buf[blk, torch.where(mine, slot, n_slots)] = x.reshape(T, d)[token_of]
+        return buf[:, :n_slots]
+    buf = on_shards(dispatch, buf_pl, xr, plan.sorted_e, plan.pos_c,
+                    plan.keep, plan.token_of,
                     in_grad_placements=(pl(E=P, d=R, f=R, R=R), None, None,
-                                        None))
-    buf = constrain(buf, ("expert_dispatch", None, None))
+                                        None, None))
+    if not ragged:
+        buf = constrain(buf, ("expert_dispatch", None, None))
 
+    if ragged:
+        def mm(b, wt):
+            return _grouped(b, wt, sizes[e_lo:e_hi])
+    else:
+        def mm(b, wt):
+            return torch.einsum("ecd,edf->ecf", b, wt.to(b.dtype))
     buf = buf.redistribute(mesh, pl(E=S0, d=S2, f=R, R=R))
     w_in = pl(E=S0, d=S1, f=S2, R=R)
     hu_pl = pl(E=S0, d=P, f=S2, R=R)
     h, u = on_shards(
-        lambda b, g, up: (torch.einsum("ecd,edf->ecf", b, g.to(b.dtype)),
-                          torch.einsum("ecd,edf->ecf", b, up.to(b.dtype))),
+        lambda b, g, up: (mm(b, g), mm(b, up)),
         (hu_pl, hu_pl), buf, p["gate"].redistribute(mesh, w_in),
         p["up"].redistribute(mesh, w_in),
         in_grad_placements=(pl(E=S0, d=S2, f=P, R=R), None, None))
@@ -296,24 +385,23 @@ def _capacity_sharded(p, x, top_k: int, C: int) -> MoEOut:
     h, u = h.redistribute(mesh, act_pl), u.redistribute(mesh, act_pl)
     hu_grad = pl(E=S0, d=P, f=S2, R=R)
     out = on_shards(
-        lambda h, u, w: torch.einsum("ecf,efd->ecd", F.silu(h) * u,
-                                     w.to(h.dtype)),
+        lambda h, u, w: mm(F.silu(h) * u, w),
         pl(E=S0, d=S2, f=P, R=R), h, u,
         p["down"].redistribute(mesh, pl(E=S0, d=S2, f=S1, R=R)),
         in_grad_placements=(hu_grad, hu_grad, None))
-    out = constrain(out, ("expert_dispatch", None, None))
+    if not ragged:
+        out = constrain(out, ("expert_dispatch", None, None))
 
     o_pl = tuple(out.placements)
-    e0, n_e = local_offset((E, C, d), mesh, o_pl, 0)
+    o_blocks = local_offset(out.shape, mesh, o_pl, 0)
 
     def combine(out, gates, sorted_e, pos_c, keep, order):
-        le = sorted_e - e0
-        mine = (le >= 0) & (le < n_e)
+        blk, slot, mine = landing(sorted_e, pos_c, keep, *o_blocks)
         gflat = gates.reshape(-1)[order]
-        got = out[torch.where(mine, le, 0), pos_c] * torch.where(
-            keep & mine, gflat, gflat.new_zeros(()))[:, None]
+        got = out[blk, slot] * torch.where(
+            mine, gflat, gflat.new_zeros(()))[:, None]
         return _combine(got, order, T, top_k).reshape(B, S, -1)
-    # the output's experts (dim 0) and partial sums give partial sums of y;
+    # the output's blocks (dim 0) and partial sums give partial sums of y;
     # its columns (dim 2) are y's columns
     y_pl = [q if q == S2 or q == R else P for q in o_pl]
     y = on_shards(combine, y_pl, out, gates, plan.sorted_e, plan.pos_c,
@@ -328,7 +416,7 @@ def _capacity_sharded(p, x, top_k: int, C: int) -> MoEOut:
 
 def _ffn_modes(mesh, gate_placements) -> Tuple[str, ...]:
     """Each mesh axis's mode of the sharded expert FFN (see
-    :func:`_capacity_sharded`): ``E`` where the ``expert_dispatch`` rule
+    :func:`_sharded_dispatch`): ``E`` where the ``expert_dispatch`` rule
     names the axis, else what the (E, d, ff) gate weights' placement on
     it shards."""
     from torch.distributed.tensor import Shard
@@ -349,9 +437,8 @@ def _shared(p, x2: torch.Tensor) -> torch.Tensor:
     if "shared" not in p:
         return torch.zeros_like(x2)
     sp = p["shared"]
-    h = F.silu(x2 @ sp["gate"]["w"].to(x2.dtype)) \
-        * (x2 @ sp["up"]["w"].to(x2.dtype))
-    return h @ sp["down"]["w"].to(x2.dtype)
+    h = F.silu(dense(sp["gate"], x2)) * dense(sp["up"], x2)
+    return dense(sp["down"], h)
 
 
 def moe_apply(p, x: torch.Tensor, top_k: int, impl: str = "ragged",

@@ -36,7 +36,7 @@ from repro_torch.distributed.sharding import (constrain, is_dtensor,
                                               on_rows_and_heads, on_shards,
                                               rows_and_heads)
 from .layers import (causal_conv1d, causal_conv1d_init, causal_conv1d_step,
-                     dense_init, init_device, rmsnorm, rmsnorm_init)
+                     dense, dense_init, init_device, rmsnorm, rmsnorm_init)
 
 
 class MambaCfg(NamedTuple):
@@ -199,9 +199,9 @@ def _ssm_inputs(p, cfg: MambaCfg, conv_out: torch.Tensor, dt: torch.Tensor):
     return xi, Bc, Cc, dt
 
 
-def _out(p, y: torch.Tensor, z: torch.Tensor, x: torch.Tensor):
+def _out(p, y: torch.Tensor, z: torch.Tensor):
     y = rmsnorm(p["norm"], y) * F.silu(z)
-    return y @ p["out_proj"]["w"].to(x.dtype)
+    return dense(p["out_proj"], y)
 
 
 def mamba_prefill(p, x: torch.Tensor, cfg: MambaCfg
@@ -209,7 +209,7 @@ def mamba_prefill(p, x: torch.Tensor, cfg: MambaCfg
     """Full-sequence forward that also emits the decode state (final SSM
     state + conv tail), so decoding can continue after the prompt."""
     B, S, _ = x.shape
-    zxbcdt = x @ p["in_proj"]["w"].to(x.dtype)
+    zxbcdt = dense(p["in_proj"], x)
     z, xi, Bc, Cc, dt = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xi, Bc, Cc], dim=-1)
     conv_tail = conv_in[:, S - (cfg.conv_width - 1):, :]
@@ -218,7 +218,7 @@ def mamba_prefill(p, x: torch.Tensor, cfg: MambaCfg
     A = -torch.exp(p["A_log"])
     xh = xi.reshape(B, S, cfg.n_heads, cfg.head_dim)
     y, h_last = ssd_chunked(xh, dt, A, Bc, Cc, p["D"], cfg.chunk)
-    y = _out(p, y.reshape(B, S, cfg.d_inner), z, x)
+    y = _out(p, y.reshape(B, S, cfg.d_inner), z)
     return y, MambaState(h=h_last.to(x.dtype), conv=conv_tail)
 
 
@@ -257,7 +257,7 @@ def mamba_decode_step(p, x_t: torch.Tensor, state: MambaState,
              (False, 0), (False, 0)), ((True, 1), (True, 1)))
     else:
         y, h = _state_update(*args)
-    y = _out(p, y.reshape(B, cfg.d_inner), z, x_t)
+    y = _out(p, y.reshape(B, cfg.d_inner), z)
     return y, MambaState(h=h, conv=new_window)
 
 

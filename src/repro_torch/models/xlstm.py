@@ -43,10 +43,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
-from repro_torch.distributed.sharding import (is_dtensor, on_rows_and_heads,
-                                              on_shards, pinned,
-                                              rows_and_heads,
-                                              rows_and_heads_of, settled)
+from repro_torch.distributed.sharding import (gather_sequence, is_dtensor,
+                                              on_rows_and_heads, on_shards,
+                                              pinned, rows_and_heads,
+                                              rows_and_heads_of,
+                                              scatter_sequence, settled)
 from .layers import (causal_conv1d, causal_conv1d_init, causal_conv1d_step,
                      dense_init, init_device, layernorm_init, norm_apply,
                      rmsnorm_init)
@@ -121,7 +122,7 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not is_dtensor(x):
         return x @ w
     if x.dim() != 2:
-        return pinned(x) @ w
+        return scatter_sequence(pinned(gather_sequence(x)) @ w)
     from torch.distributed.tensor import Partial, Replicate, Shard
     x_pl = [Shard(1) if pl == Shard(0) else Replicate()
             for pl in w.placements]

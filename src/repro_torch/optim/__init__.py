@@ -1,3 +1,3 @@
 from .optimizers import (OptState, Optimizer, adafactor, adamw,
                          clip_by_global_norm, cosine_schedule,
-                         linear_warmup_cosine, sgd)
+                         distinct_storage, linear_warmup_cosine, sgd)

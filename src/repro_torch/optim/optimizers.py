@@ -5,7 +5,10 @@ state and params are nested dicts with the parameters' key paths, so the
 same code drives the FusionLLM decentralized runtime (per-CompNode
 sub-trees — the paper's per-OP "Update" stage, §3.3) and unit tests.  The
 update is written out (no ``torch.optim``) so it is the JAX package's
-formula: ``update`` returns new tensors and leaves its inputs as they were.
+formula: ``update`` returns new tensors and leaves its inputs as they were,
+unless the caller lets it consume the gradients (``consume_grads``: a
+train step that owns them, as the JAX package's jitted step, which donates
+its buffers, holds no third parameter-sized tree).
 
 Schedules map the step (a 0-dim int tensor) to a 0-dim float32 tensor on
 the CPU, which scales tensors on any device.
@@ -25,7 +28,8 @@ import torch
 from repro_torch.core.opgraph import tree_leaves
 from repro_torch.core.rad import tree_map
 from repro_torch.distributed.params import generic_spec
-from repro_torch.distributed.sharding import NamedSharding, mesh_of, zeros
+from repro_torch.distributed.sharding import (NamedSharding, is_dtensor,
+                                              mesh_of, zeros)
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -38,8 +42,9 @@ class OptState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], OptState]
-    update: Callable[[Any, OptState, Any], Tuple[Any, OptState]]
-    # update(grads, state, params) -> (new_params, new_state)
+    update: Callable[..., Tuple[Any, OptState]]
+    # update(grads, state, params, consume_grads=False)
+    #     -> (new_params, new_state)
 
 
 def _f32(x) -> torch.Tensor:
@@ -95,11 +100,34 @@ def _as_sched(lr) -> Schedule:
 
 # ------------------------------------------------------------------- clip --
 def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global norm of at most ``max_norm``, the norm
+    before).  The gradients are scaled where they are, with the JAX
+    package's numbers: the caller owns them, each leaf in memory of its
+    own (:func:`distinct_storage`), and reads them only through the
+    result."""
     leaves = tree_leaves(grads)
     gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                         for g in leaves))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
-    return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
+    return tree_map(lambda g: g.mul_(scale), grads), gn
+
+
+def distinct_storage(tree):
+    """``tree`` with each leaf whose memory an earlier leaf's shares (one
+    autograd gradient reaching two parameters), or whose entries share
+    memory (a broadcast gradient), copied, so that a leaf can be written
+    in place alone."""
+    seen = set()
+
+    def own(t):
+        local = t.to_local() if is_dtensor(t) else t
+        ptr = local.untyped_storage().data_ptr()
+        if ptr in seen or any(st == 0 and n > 1 for st, n in
+                              zip(local.stride(), local.shape)):
+            return t.clone()
+        seen.add(ptr)
+        return t
+    return tree_map(own, tree)
 
 
 # -------------------------------------------------------------------- SGD --
@@ -112,7 +140,8 @@ def sgd(lr=1e-2, momentum: float = 0.9, nesterov: bool = False,
                        params) if momentum else None
         return OptState(step=_step0(params), inner=mom)
 
-    def update(grads, state, params):
+    def update(grads, state, params, consume_grads=False):
+        del consume_grads               # computes in new memory
         lr_t = sched(state.step)
         if weight_decay:
             grads = tree_map(lambda g, p: g + weight_decay * p, grads, params)
@@ -140,7 +169,8 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                         inner={"m": tree_map(fresh, params),
                                "v": tree_map(fresh, params)})
 
-    def update(grads, state, params):
+    def update(grads, state, params, consume_grads=False):
+        del consume_grads               # computes in new memory
         t = state.step + 1
         lr_t = sched(state.step)
         bc1 = 1 - _f32(b1) ** _f32(t)
@@ -184,29 +214,44 @@ def adafactor(lr=1e-3, decay: float = 0.8, eps: float = 1e-30,
     def init(params):
         return OptState(step=_step0(params), inner=tree_map(_facts, params))
 
-    def update(grads, state, params):
+    def update(grads, state, params, consume_grads=False):
+        """The step computes in each gradient's fp32 copy, or with
+        ``consume_grads`` (gradients of distinct memory that the caller
+        does not read again) in an fp32 gradient itself, whose memory then
+        holds the new fp32 parameter; each leaf-sized temporary is dropped
+        once used (those of the largest leaf set a step's peak memory).
+        In place or not, the arithmetic is the JAX package's formula's."""
         t = state.step + 1
         lr_t = sched(state.step)
         beta = 1.0 - (_f32(t) + 1.0) ** (-decay)
 
         def upd(p, g, f):
             g32 = g.to(torch.float32)
+            if g32 is g and not consume_grads:
+                g32 = g.clone()
             g2 = torch.square(g32) + eps
             if p.dim() < 2:
                 v = beta * f["v"] + (1 - beta) * g2
-                u = g32 / torch.sqrt(v + eps)
-                nf = {"v": v}
+                del g2
+                nf, denom = {"v": v}, v
             else:
                 r = beta * f["r"] + (1 - beta) * torch.mean(g2, dim=-1)
                 c = beta * f["c"] + (1 - beta) * torch.mean(g2, dim=-2)
+                del g2
+                nf = {"r": r, "c": c}
                 denom = (r[..., None] * c[..., None, :]
                          / torch.clamp(torch.mean(r, dim=-1, keepdim=True)
                                        [..., None], min=eps))
-                u = g32 / torch.sqrt(denom + eps)
-                nf = {"r": r, "c": c}
+            # in place on the gradient alone: DTensor may leave the
+            # factors' product Partial, which no in-place op keeps
+            denom = denom + eps
+            denom = torch.sqrt(denom)
+            u = g32.div_(denom)
+            del denom
             rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            return (p - lr_t * u).to(p.dtype), nf
+            u.div_(torch.clamp(rms / clip_threshold, min=1.0))
+            # p - lr·u, as -(lr·u) + p: the same rounding
+            return u.mul_(-lr_t).add_(p).to(p.dtype), nf
 
         # a parameter leaf meets its factor dict: tree_map walks params
         out = tree_map(upd, params, grads, state.inner)

@@ -31,8 +31,10 @@ from repro.distributed.steps import make_train_step as j_make_step  # noqa: E402
 from repro.models import causal_lm as j_lm  # noqa: E402
 from repro_torch import optim as t_optim  # noqa: E402
 from repro_torch.checkpoint import from_numpy_tree, to_numpy_tree  # noqa: E402
+from repro_torch.core.rad import tree_map as t_tree_map  # noqa: E402
 from repro_torch.data import ShardedLoader, SyntheticLM  # noqa: E402
 from repro_torch.distributed import make_train_step as t_make_step  # noqa: E402
+from repro_torch.distributed.steps import loss_and_grad as t_loss_and_grad  # noqa: E402
 from repro_torch.launch import train as t_train  # noqa: E402
 from test_torch_causal_lm import _cfgs, lm_setup  # noqa: E402
 from test_torch_models import ATOL, CPU, _assert_trees_close, _np_tree  # noqa: E402
@@ -124,6 +126,61 @@ def test_adafactor_clips_a_stacked_leaf_as_a_whole():
 
 
 # ----------------------------------------------------------------- loader --
+def test_adafactor_consuming_its_gradients_gives_the_same_numbers():
+    """``update(..., consume_grads=True)`` writes each fp32 leaf's new value
+    into its gradient's memory and gives the functional update's numbers
+    bit for bit; ``distinct_storage`` copies a gradient whose memory
+    another leaf's shares, or whose entries share memory; and
+    ``make_train_step`` (which clips in place and lets the update consume
+    its gradients) gives a functional step's parameters, state and
+    metrics bit for bit over three steps."""
+    params, grads = _stacked_tree(3)
+    opt = t_optim.adafactor(1e-2)
+    pt = from_numpy_tree(params, CPU)
+    want, want_st = opt.update(from_numpy_tree(grads, CPU), opt.init(pt), pt)
+    gt = from_numpy_tree(grads, CPU)
+    ptrs = {k: v.data_ptr() for k, v in gt.items() if k != "ln"}
+    got, got_st = opt.update(gt, opt.init(pt), pt, consume_grads=True)
+    for a, b in zip(jax.tree_util.tree_leaves((got, got_st.inner)),
+                    jax.tree_util.tree_leaves((want, want_st.inner))):
+        assert torch.equal(a, b)
+    assert {k: got[k].data_ptr() for k in ptrs} == ptrs
+    g = torch.ones(3)
+    owned = t_optim.distinct_storage({"a": g, "b": g,
+                                      "c": torch.ones(1).expand(3)})
+    assert owned["a"] is g and owned["b"] is not g
+    assert torch.equal(owned["b"], g)
+    assert owned["c"].stride() == (1,)
+
+    def functional_step(p, st, batch):
+        """loss_and_grad, the clip written out with new tensors, and the
+        update that leaves its inputs as they were."""
+        loss, metrics, grads = t_loss_and_grad(s["cfg_t"], p, batch)
+        leaves = jax.tree_util.tree_leaves(grads)
+        gn = torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                            for x in leaves))
+        scale = torch.clamp(1.0 / torch.clamp(gn, min=1e-12), max=1.0)
+        grads = t_tree_map(lambda x: (x * scale).to(x.dtype), grads)
+        p, st = opt.update(grads, st, p)
+        return p, st, {"loss": loss, "grad_norm": gn, **metrics}
+
+    s = lm_setup("llama3-8b")
+    ds = SyntheticLM(vocab=s["cfg_t"].vocab, seq_len=16, seed=0)
+    runs = []
+    for step in (functional_step, t_make_step(s["cfg_t"], opt)):
+        p = from_numpy_tree(to_numpy_tree(s["pt"]), CPU)
+        st, metrics = opt.init(p), []
+        for i in range(3):
+            p, st, m = step(p, st, {k: torch.as_tensor(v).long()
+                                    for k, v in ds.batch(2, i).items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs.append((p, st.inner, metrics))
+    for a, b in zip(jax.tree_util.tree_leaves(runs[0][:2]),
+                    jax.tree_util.tree_leaves(runs[1][:2])):
+        assert torch.equal(a, b)
+    assert runs[0][2] == runs[1][2]
+
+
 def test_sharded_loader_gives_host_values_as_long_on_the_device():
     ds = SyntheticLM(vocab=97, seq_len=12, seed=0, order=1)
     host = [ds.batch(3, i) for i in range(2)]

@@ -192,15 +192,15 @@ def test_capacity_drops_entries(both, case):
         assert res["train"][case]["dropped"] == dropped
 
 
-@pytest.mark.parametrize("arch,impl", ranks.REFUSED,
-                         ids=[a for a, _ in ranks.REFUSED])
-def test_refused_on_a_process_mesh(both, arch, impl):
-    """The ragged dispatch raises NotImplementedError naming the ROADMAP
-    slice that brings it (Q1.6f), for every step kind."""
+@pytest.mark.parametrize("arch,impl", ranks.BUILT,
+                         ids=[f"{a}-{i}" if i else a for a, i in ranks.BUILT])
+def test_every_family_and_dispatch_builds_on_a_process_mesh(both, arch,
+                                                            impl):
+    """``build_jitted`` builds the train, prefill and decode steps on the
+    process mesh for every family and every MoE dispatch: none raises
+    (``NotImplementedError`` or other)."""
     _, port = both
-    for kind in ("train", "prefill", "decode"):
-        msg = port[0]["refused"][(arch, kind)]
-        assert msg.startswith("NotImplementedError") \
-            and ranks.REFUSED_SLICE[arch] in msg, msg
-        if impl:
-            assert impl in msg and "smoke" in msg, msg
+    for res in port:
+        for kind in ("train", "prefill", "decode"):
+            assert res["built"][(arch, impl, kind)] == "built", \
+                res["built"][(arch, impl, kind)]

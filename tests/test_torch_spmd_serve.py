@@ -222,13 +222,3 @@ def test_cache_shards_are_slices_of_the_unsharded_cache(both, arch, stage):
                                        whole["blocks"][key][sl],
                                        rtol=CACHE_RTOL, atol=CACHE_ATOL)
 
-
-def test_refused_on_a_process_mesh(both):
-    """The serving steps of the families the process mesh does not run yet
-    raise, as the train step does."""
-    _, port = both
-    for arch, _ in ranks.REFUSED:
-        for kind in ("prefill", "decode"):
-            msg = port[0]["refused"][(arch, kind)]
-            assert msg.startswith("NotImplementedError") \
-                and ranks.REFUSED_SLICE[arch] in msg, msg

@@ -20,9 +20,16 @@ without JAX, so the spawned ranks import only the port).
 ``run_moe_ranks`` (``tests/test_torch_spmd_moe.py``) takes the MoE
 family's train step on the same mesh, under each override set's rules and
 parameter overrides, counting the (token, choice) entries the capacity
-dispatch drops; ``run_serve_ranks`` (``tests/test_torch_spmd_serve.py``)
-the sharded prefill and decode steps.  Both check that the families and
-dispatch the process mesh does not run yet raise.  ``run_hybrid_ranks``
+dispatch drops, and builds every family's steps under every MoE dispatch;
+``run_serve_ranks`` (``tests/test_torch_spmd_serve.py``) the sharded
+prefill and decode steps.  ``run_case_ranks``
+(``tests/test_torch_spmd_moe_ragged.py``, ``test_torch_spmd_seqpar.py``,
+``test_torch_spmd_seqpar_families.py``,
+``test_torch_spmd_seqpar_encdec.py``) takes the train step of each case of
+a table (an arch, its MoE dispatch, an override set and config changes),
+and ``run_ragged_serve_ranks``
+(``tests/test_torch_spmd_moe_ragged_serve.py``) the ragged dispatch's
+prefill and decode steps.  ``run_hybrid_ranks``
 (``tests/test_torch_spmd_hybrid.py``) takes the hybrid family's train
 step and ``ssd_chunked`` alone on DTensors; ``run_hybrid_serve_ranks``
 (``tests/test_torch_spmd_hybrid_serve.py``) its prefill and greedy decode.
@@ -56,10 +63,36 @@ MOE_STEPS = 2
 # DECODE_STEPS steps of given tokens
 SERVE_ARCHS = ("gpt2-xl", "llama3-8b", "internvl2-2b", "mixtral-8x7b")
 PROMPT, CACHE_LEN, DECODE_STEPS = 16, 32, 4
-# what the process mesh does not run yet: (arch, moe_impl or None), and
-# the ROADMAP slice that each refusal names
-REFUSED = (("mixtral-8x7b", "ragged"),)
-REFUSED_SLICE = {"mixtral-8x7b": "Q1.6f"}
+# every family's steps that build_jitted builds on the process mesh:
+# (arch, moe_impl or None)
+BUILT = (("gpt2-xl", None), ("internvl2-2b", None),
+         ("mixtral-8x7b", "capacity"), ("mixtral-8x7b", "ragged"),
+         ("mixtral-8x7b", "loop"), ("zamba2-7b", None), ("xlstm-1_3b", None),
+         ("seamless-m4t-large-v2", None))
+# the train step by case: the arch's smoke config with its MoE dispatch
+# ("impl", for the moe family), an override set's rules, parameter
+# overrides and config ("set"), config changes ("cfg"), for "steps"
+# Adafactor steps at batch 4 × SEQ
+def _case(arch, impl=None, set_name=None, steps=2, **cfg):
+    return {"arch": arch, "impl": impl, "set": set_name, "cfg": cfg,
+            "steps": steps}
+
+
+RAGGED_SERVE_ARCH = "mixtral-8x7b"
+RAGGED_CASES = {
+    "mixtral-ragged": _case("mixtral-8x7b", "ragged"),
+    "mixtral-ragged-ep": _case("mixtral-8x7b", "ragged", "ep"),
+    "deepseek-ragged": _case("deepseek-moe-16b", "ragged"),
+    "mixtral-loop": _case("mixtral-8x7b", "loop")}
+SEQPAR_CASES = {
+    "llama3-seqpar": _case("llama3-8b", set_name="seqpar"),
+    "gpt2-seqpar": _case("gpt2-xl", set_name="seqpar"),
+    "mixtral-ep_seqpar": _case("mixtral-8x7b", "capacity", "ep_seqpar"),
+    "mixtral-moe_w_seqpar": _case("mixtral-8x7b", "capacity",
+                                  "moe_w_seqpar"),
+    "mixtral-ragged-seqpar": _case("mixtral-8x7b", "ragged", "seqpar"),
+    "llama3-seqpar_dots": _case("llama3-8b", set_name="seqpar_dots",
+                                remat=True)}
 # the hybrid family: zamba2-smoke cut to 7 layers (3 groups of 2, each
 # followed by one of the 2 shared blocks, and a 1-layer tail); 4 × 16
 # tokens span two SSD chunks of 8
@@ -79,6 +112,15 @@ MLSTM_SHAPE, SLSTM_SHAPE, SLSTM_SHORT = (4, 16, 4, 16), (4, 16, 4, 8), 4
 ENCDEC_ARCH, ENCDEC_STEPS = "seamless-m4t-large-v2", 2
 ENCDEC_PAD = dict(name="seamless-smoke-pad", n_layers=4, n_enc_layers=2,
                   vocab=500, vocab_pad_to=64)
+# seqpar on the other families: the cuts above (the xLSTM's step 1 alone:
+# the sLSTM bias's rounding noise reaches every leaf in step 2)
+SEQPAR_FAMILY_CASES = {
+    "zamba2-seqpar": _case(HYBRID_ARCH, set_name="seqpar",
+                           n_layers=HYBRID_LAYERS),
+    "xlstm-seqpar": _case(XLSTM_ARCH, set_name="seqpar", steps=1,
+                          n_layers=XLSTM_LAYERS)}
+SEQPAR_ENCDEC_CASES = {
+    "encdec-seqpar": _case(ENCDEC_ARCH, set_name="seqpar", **ENCDEC_PAD)}
 
 
 # the JAX side's helpers, for the subprocess scripts of the test files: a
@@ -113,6 +155,54 @@ def shards(prefix, tree):
             i = pos[s.device.id]
             out[f"{key}@{i}"] = np.asarray(s.data)
             out[f"{key}@{i}#index"] = index(s.index, leaf.shape)
+"""
+
+
+# JAX's side of the tables of cases (RAGGED_CASES and the like), for the
+# subprocess of the test files: each case's train step under its set, its
+# losses, grad_norm and every shard after each step, under "<case>/"
+JAX_CASES_SCRIPT = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import numpy as np
+import jax
+from jax.sharding import AxisType
+from repro.configs import resolve
+from repro.configs.base import InputShape
+from repro.distributed.sharding import use_mesh
+from repro.distributed.steps import build_jitted
+from repro.optim import adafactor
+from repro.perf import overrides
+
+CASES = {cases!r}
+z = np.load(sys.argv[1])
+out = {{}}
+mesh = jax.make_mesh((2, 2), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2)
+pos = {{d.id: i for i, d in enumerate(mesh.devices.flat)}}
+{helpers}
+for name, case in CASES.items():
+    cfg = resolve(case["arch"]).smoke
+    if cfg.family == "moe":
+        cfg = cfg.replace(moe_impl=case["impl"] or "capacity")
+    ov = overrides.get(case["set"]) or {{}}
+    cfg = cfg.replace(**{{**(ov.get("cfg") or {{}}), **case["cfg"]}})
+    B, S = z[f"{{name}}/batch0/tokens"].shape
+    fn, _, _ = build_jitted(cfg, mesh, InputShape("spmd", S, B, "train"),
+                            param_overrides=ov.get("param_overrides"))
+    params = tree(f"{{name}}/weights/")
+    state = adafactor(1e-3).init(params)
+    keys = [k.rsplit("/", 1)[1] for k in z.files
+            if k.startswith(f"{{name}}/batch0/")]
+    for i in range(case["steps"]):
+        batch = {{k: z[f"{{name}}/batch{{i}}/{{k}}"] for k in keys}}
+        with use_mesh(mesh, ov.get("rules")):
+            params, state, m = fn(params, state, batch)
+        out[f"{{name}}/loss{{i}}"] = np.asarray(m["loss"])
+        out[f"{{name}}/grad_norm{{i}}"] = np.asarray(m["grad_norm"])
+        shards(f"{{name}}/shard{{i}}/param/", params)
+        shards(f"{{name}}/shard{{i}}/opt/", state)
+np.savez(sys.argv[2], **out)
 """
 
 
@@ -385,23 +475,23 @@ def fail_on_rank_1(rank, dev):
     return rank
 
 
-def _refused(dev) -> dict:
-    """``build_jitted``'s error for each step kind of what the process
-    mesh does not run yet."""
+def _built(dev) -> dict:
+    """What ``build_jitted`` makes of each step kind of every case of
+    BUILT on the process mesh: "built", or the error it raised."""
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed.steps import build_jitted
     from repro_torch.launch.mesh import make_process_mesh
 
     mesh = make_process_mesh((2, 2), ("data", "model"), dev)
     out = {}
-    for arch, impl in REFUSED:
+    for arch, impl in BUILT:
         cfg = smoke_cfg(arch, impl) if impl else smoke_cfg(arch)
         for kind in ("train", "prefill", "decode"):
             try:
                 build_jitted(cfg, mesh, InputShape(kind, SEQ, 4, kind))
-                out[(arch, kind)] = "built"
-            except NotImplementedError as e:
-                out[(arch, kind)] = f"NotImplementedError: {e}"
+                out[(arch, impl, kind)] = "built"
+            except Exception as e:     # noqa: BLE001 - the test names it
+                out[(arch, impl, kind)] = f"{type(e).__name__}: {e}"
     return out
 
 
@@ -467,9 +557,204 @@ def run_moe_ranks(rank, dev, runs) -> dict:
     spmd.reset_staged_counts()
     out = {"train": {case: _moe_train(dev, arch, set_name, runs[arch])
                      for case, (arch, set_name) in MOE_CASES.items()},
-           "refused": _refused(dev)}
+           "built": _built(dev)}
     out["staged"] = spmd.staged_counts()
     return out
+
+
+def case_cfg(case):
+    """The config of a case of RAGGED_CASES, SEQPAR_CASES,
+    SEQPAR_FAMILY_CASES or SEQPAR_ENCDEC_CASES: its arch's smoke config,
+    the moe family with the case's dispatch (the capacity dispatch by
+    default), then its override set's config changes and its own."""
+    from repro_torch.configs import resolve
+    from repro_torch.perf import overrides
+    cfg = resolve(case["arch"]).smoke
+    if cfg.family == "moe":
+        cfg = cfg.replace(moe_impl=case["impl"] or "capacity")
+    ov = overrides.get(case["set"]) or {}
+    return cfg.replace(**{**(ov.get("cfg") or {}), **case["cfg"]})
+
+
+def case_runs(cases, batch=4) -> dict:
+    """Each case's weights (the port's ``init`` of its config at seed 0) and
+    batches (``numpy.random.default_rng(1)``: tokens and labels of batch
+    × SEQ, and the encoder-decoder's frame embeddings), as numpy arrays."""
+    import numpy as np
+    from repro_torch.checkpoint import to_numpy_tree
+    from repro_torch.distributed.steps import src_len_for
+    from repro_torch.models import causal_lm, encdec
+    out = {}
+    for name, case in cases.items():
+        cfg = case_cfg(case)
+        model = encdec if cfg.family == "encdec" else causal_lm
+        rng = np.random.default_rng(1)
+        batches = []
+        for _ in range(case["steps"]):
+            b = {}
+            if cfg.family == "encdec":
+                b["src_embeds"] = rng.standard_normal(
+                    (batch, src_len_for(cfg, SEQ), cfg.d_frontend)
+                ).astype(np.float32)
+            for k in ("tokens", "labels"):
+                b[k] = rng.integers(0, cfg.vocab, (batch, SEQ)).astype(
+                    np.int32)
+            batches.append(b)
+        out[name] = {"params": to_numpy_tree(model.init(
+            cfg, torch.Generator().manual_seed(0))), "batches": batches}
+    return out
+
+
+def cases_both(cases, runs, tmp, timeout) -> tuple:
+    """(JAX's results, the port's ranks' results) of the train steps of
+    ``cases`` on ``runs`` (:func:`case_runs`): JAX_CASES_SCRIPT in a
+    subprocess while 4 ranks run :func:`run_case_ranks` on the host-staged
+    group, both in the directory ``tmp``."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    import numpy as np
+    from repro_torch.launch import spmd
+    arrays = {}
+    for name, run in runs.items():
+        flat_arrays(run["params"], f"{name}/weights/", arrays)
+        for i, b in enumerate(run["batches"]):
+            for k, v in b.items():
+                arrays[f"{name}/batch{i}/{k}"] = v
+    np.savez(tmp / "in.npz", **arrays)
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(src))
+    script = JAX_CASES_SCRIPT.format(cases=cases, helpers=JAX_HELPERS)
+    jax_proc = subprocess.Popen(
+        [sys.executable, "-c", script, str(tmp / "in.npz"),
+         str(tmp / "jax.npz")], env=env)
+    try:
+        port = spmd.run(run_case_ranks, 4, rdv_dir=str(tmp), device="cpu",
+                        backend=spmd.STAGED, timeout=timeout,
+                        args=(runs, cases))
+        assert jax_proc.wait(timeout=timeout) == 0
+    finally:
+        if jax_proc.poll() is None:
+            jax_proc.kill()
+    return np.load(tmp / "jax.npz"), port
+
+
+def case_shards_match(jax_run, port, name, step, atol, skip=()):
+    """Every leaf of the parameters and the Adafactor state after ``step``
+    of case ``name``: on each mesh position the port's local shard has
+    JAX's shard's shape and index, and its values within ``atol`` (but
+    the leaves ``skip`` names, whose shape and index alone are held)."""
+    import numpy as np
+    prefix = f"{name}/shard{step}/"
+    keys = {k[len(prefix):].rsplit("@", 1)[0] for k in jax_run.files
+            if k.startswith(prefix) and "#" not in k}
+    assert keys
+    for rank, res in enumerate(port):
+        shards = res["train"][name]["step_shards"][step]
+        assert set(shards) == keys
+        for key, got in shards.items():
+            want = jax_run[f"{prefix}{key}@{rank}"]
+            idx = jax_run[f"{prefix}{key}@{rank}#index"]
+            assert got["shape"] == want.shape, key
+            assert np.array_equal(index_rows(got["offset"], got["shape"]),
+                                  idx), key
+            if key.split("/", 1)[1] not in skip:
+                np.testing.assert_allclose(got["values"], want, rtol=0,
+                                           atol=atol, err_msg=key)
+
+
+def _case_train(dev, case, run) -> dict:
+    """``build_jitted``'s train step of ``case`` (its config, under its
+    override set's rules and parameter overrides) on ``run``'s weights and
+    batches: the losses and ``grad_norm`` a step, every leaf's local shard
+    after each step, and the bytes staged a step; for each step, the
+    (token, choice) entries the dispatch dropped (one count a MoE layer),
+    the rows the ragged dispatch's grouped matmuls took on this rank, and
+    the placements of the residual stream between blocks (the outputs of
+    ``constrain(h, ("batch", "act_seq", None))``).  Rank 0 also runs the
+    port's unsharded step and returns its losses."""
+    from repro_torch.checkpoint import from_numpy_tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed.params import shard_tree
+    from repro_torch.distributed.sharding import is_dtensor, use_mesh
+    from repro_torch.distributed.steps import build_jitted, make_train_step
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import causal_lm, moe
+    from repro_torch.optim import adafactor
+    from repro_torch.perf import overrides
+
+    cfg = case_cfg(case)
+    ov = overrides.get(case["set"]) or {}
+    batches = [{k: torch.as_tensor(v, device=dev, dtype=torch.long
+                                   if v.dtype.kind == "i" else None)
+                for k, v in b.items()} for b in run["batches"]]
+    B, S = batches[0]["tokens"].shape
+    mesh = make_process_mesh((2, 2), ("data", "model"), dev)
+    fn, _, meta = build_jitted(cfg, mesh, InputShape("spmd", S, B, "train"),
+                               param_overrides=ov.get("param_overrides"))
+    p_sh, _, b_sh = meta["in_shardings"]
+    params = from_numpy_tree(run["params"], dev, p_sh)
+    opt = adafactor(1e-3)
+    state = opt.init(params)
+    out = {"losses": [], "grad_norms": [], "step_shards": [], "dropped": [],
+           "grouped_rows": [], "residual": [], "staged_bytes": []}
+    plan, grouped, constrain = (moe.capacity_plan, moe._grouped,
+                                causal_lm.constrain)
+
+    def counted_plan(*a, **kw):
+        got = plan(*a, **kw)
+        out["dropped"][-1].append(int((~got.keep).sum()))
+        return got
+
+    def counted_grouped(buf, w, sizes):
+        out["grouped_rows"][-1] += sum(sizes)
+        return grouped(buf, w, sizes)
+
+    def logged(x, axes):
+        y = constrain(x, axes)
+        if tuple(axes) == ("batch", "act_seq", None) and is_dtensor(y):
+            seen = tuple(str(q) for q in y.placements)
+            if seen not in out["residual"][-1]:
+                out["residual"][-1].append(seen)
+        return y
+    for b in batches:
+        out["dropped"].append([])
+        out["grouped_rows"].append(0)
+        out["residual"].append([])
+        spmd.reset_staged_counts()
+        moe.capacity_plan, moe._grouped = counted_plan, counted_grouped
+        causal_lm.constrain = logged
+        try:
+            with use_mesh(mesh, ov.get("rules")):
+                params, state, m = fn(params, state, shard_tree(b, b_sh))
+        finally:
+            moe.capacity_plan, moe._grouped = plan, grouped
+            causal_lm.constrain = constrain
+        out["staged_bytes"].append(_staged("_bytes"))
+        out["losses"].append(float(m["loss"].full_tensor()))
+        out["grad_norms"].append(float(m["grad_norm"].full_tensor()))
+        out["step_shards"].append(
+            {**{"param/" + k: _local(v)
+                for k, v in _leaves_by_path(params).items()},
+             **{"opt/" + k: _local(v)
+                for k, v in _leaves_by_path(state).items()}})
+    if torch.distributed.get_rank() == 0:
+        whole = from_numpy_tree(run["params"], dev)
+        st = opt.init(whole)
+        step = make_train_step(cfg, opt)
+        out["unsharded_losses"] = []
+        for b in batches:
+            whole, st, m = step(whole, st, b)
+            out["unsharded_losses"].append(float(m["loss"]))
+    return out
+
+
+def run_case_ranks(rank, dev, runs, cases) -> dict:
+    """``runs[case]``: the weights and batches of each case of ``cases``."""
+    return {"train": {name: _case_train(dev, case, runs[name])
+                      for name, case in cases.items()}}
 
 
 def _serve(dev, cfg, run) -> dict:
@@ -548,8 +833,14 @@ def _serve(dev, cfg, run) -> dict:
 def run_serve_ranks(rank, dev, runs) -> dict:
     """``runs[arch]``: the weights, the prompt and the decode tokens."""
     return {"serve": {arch: _serve(dev, smoke_cfg(arch), run)
-                      for arch, run in runs.items()},
-            "refused": _refused(dev)}
+                      for arch, run in runs.items()}}
+
+
+def run_ragged_serve_ranks(rank, dev, run) -> dict:
+    """``run``: the weights, the prompt and the number of greedy steps of
+    RAGGED_SERVE_ARCH's smoke config with the ragged dispatch."""
+    return {"serve": _serve(dev, smoke_cfg(RAGGED_SERVE_ARCH, "ragged"),
+                            run)}
 
 
 def _ssd(dev, run) -> dict:
