@@ -129,25 +129,38 @@
 14. trains gpt2-xl at full width and depth (seed 0, fp32) with the gspmd
    step of ``build_jitted`` sharded over a ``(2, 2)`` ``("data",
    "model")`` mesh of 4 ranks (``launch.spmd``), each on this card, joined
-   by the host-staged gloo group: 3 Adafactor steps on batches 8 × 128;
+   by the host-staged gloo group: 1 Adafactor step on a batch 8 × 128;
    each rank's argument bytes equal the shardings' sum (1,639,513,860),
    step 1's loss, ``grad_norm`` and updated parameters (one vector) are
    within rel 1e-5 of the unsharded step on the card, and every loss is
    finite; it prints each rank's peak memory, the median step seconds and
-   tokens/s, and a steady step's collectives by kind (CommDebugMode's
-   count, the staged group's calls and bytes); no codec runs; then, on
-   the same mesh, mixtral-8x7b at full width cut to 2 layers (2
-   Adafactor steps under the default rules, one under ``ep``), zamba2-7b
-   at full width cut to 13 layers (2 Adafactor steps at 4 × 256, two SSD
-   chunks) and xlstm-1.3b at full width cut to 16 layers (2 Adafactor
-   steps at 4 × 256; the mLSTM's parallel form and the sLSTM's time loop
-   on each rank's rows and heads; rank 0 also serves in float64, for the
-   fp32 floor of each served number; the sLSTM bias, whose step-1 update
-   rounding decides, held apart from the parameters' gap), and
-   seamless-m4t-large-v2 at full width and depth (12 + 12 layers, the
-   vocabulary padded to 256,256; 2 Adafactor steps at 4 × 256 target
-   tokens over 32 frames), each also served sharded (batch 4, a prompt
-   into a placed cache, 16 greedy steps; the xLSTM decode step leaves its
+   tokens/s, and the step's collectives by kind (CommDebugMode's
+   count, the staged group's calls and bytes); no codec runs; then
+   gpt2-xl at full width and depth through the GPipe pipeline with one
+   stage a rank (12 layers each, the parts placed by
+   ``pipeline_shardings``, 4 micro-batches of 2 × 128): on the ``(4,)``
+   model mesh its loss and gradients against ``loss_and_grad`` (rel 1e-6
+   / 1e-5), on the ``(2, 2)`` pod × model mesh with the codec's wire sent
+   from rank 1 to rank 2 (ratio 30, k = 137 a block; 8 encodes and 8
+   decodes a call, rank 1 encoding forward and rank 2 backward; every
+   pod-edge message 106,000 B and every other 1,638,400 B) its loss and
+   gradients against the single-process pipeline (rel 1e-5), then 3 AdamW
+   steps; then, on
+   the ``(2, 2)`` data × model mesh, mixtral-8x7b at full width cut to 1
+   layer (1 Adafactor step under each of the default rules, ``ep``,
+   ``seqpar``, ``ep_seqpar``, ``moe_w_seqpar`` and the ragged dispatch),
+   zamba2-7b at full width cut to 13 layers (1 Adafactor step at 4 ×
+   256, two SSD chunks) and xlstm-1.3b at full width cut to 8 layers (1
+   Adafactor step at 4 × 256; the mLSTM's parallel form and the sLSTM's
+   time loop on each rank's rows and heads; rank 0 also serves in
+   float64, for the fp32 floor of each served number; the sLSTM bias,
+   whose step-1 update rounding decides, held apart from the parameters'
+   gap), and seamless-m4t-large-v2 at full width and depth (12 + 12
+   layers, the vocabulary padded to 256,256; 1 Adafactor step at 4 × 256
+   target tokens over 32 frames, and one under ``seqpar``), each also
+   served sharded (batch 4, a prompt into a placed cache, 8 greedy steps;
+   mixtral with the capacity and the ragged dispatch; the xLSTM decode
+   step leaves its
    matrix memory, and the encoder-decoder's its cross-attention K/V,
    where the cache holds them), held to the same gates against the
    unsharded steps on rank 0, with the served logits, tokens and every
@@ -2944,7 +2957,7 @@ def check_pipeline_smoke(dev) -> dict:
 
 # ============================================= sharded over processes ==
 SPMD_MESH = ((2, 2), ("data", "model"))
-SPMD_STEPS = 2              # Adafactor steps (build_jitted's default)
+SPMD_STEPS = 1              # Adafactor steps (build_jitted's default)
 SPMD_GAP = 1e-5             # step 1 against the unsharded step, rel
 SPMD_LR = 1e-3              # Adafactor's (build_jitted's default)
 SPMD_TIMEOUT = 900.0        # every wait of the ranks
@@ -3019,7 +3032,7 @@ def spmd_rank(rank, dev):
         norms.append(float(m["grad_norm"].full_tensor()))
         if i == 0:
             after_first = params
-        if i == 1:                      # a steady step's collectives
+        if i == len(sharded) - 1:       # the last step's collectives
             comm = comm_counts(mode)
             comm["staged"] = staged
     peak = torch.cuda.max_memory_allocated(dev)
@@ -3055,7 +3068,7 @@ def spmd_rank(rank, dev):
             "argument_bytes_total": sum(arg_bytes.values()),
             "argument_bytes_want": want, "losses": losses,
             "grad_norms": norms, "step_s": step_s,
-            "peak_mem_gb": peak / 1e9, "collectives_step_2": comm,
+            "peak_mem_gb": peak / 1e9, "collectives_last_step": comm,
             "launches": launches, "reference": ref}
 
 
@@ -3132,19 +3145,389 @@ def run_spmd_path(dev):
         "limit": SPMD_GAP, "step_s": ranks[0]["step_s"],
         "median_step_s": median, "tokens_per_s": BATCH * SEQ / median,
         "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in ranks],
-        "collectives_step_2_rank_0": ranks[0]["collectives_step_2"],
+        "collectives_last_step_rank_0": ranks[0]["collectives_last_step"],
         "wall_s": wall, "launches": launches}
     print("spmd path: " + json.dumps(report))
     for r in ranks:
         print(f"spmd rank {r['rank']} {r['coordinate']}: " + json.dumps(
             {k: r[k] for k in ("argument_bytes", "peak_mem_gb", "step_s",
-                               "collectives_step_2")}))
+                               "collectives_last_step")}))
+    return launches
+
+
+# ======================================= the pipeline over processes ==
+PIPE_SPMD_BASE = 10.0       # base ratio on the pod mesh: edge 1 -> 2 at 30
+PIPE_SPMD_STEPS = 3         # AdamW steps on the pod mesh
+PIPE_SPMD_GAP = 1e-5        # pod mesh vs the single-process pipeline, rel
+
+
+def log_p2p(messages: list) -> None:
+    """Makes this process's host-staged group log each message it sends or
+    receives, as (kind, peer, tag, bytes), in ``messages``."""
+    from repro_torch.launch import spmd
+    cls = spmd.HostStagedGroup
+    for kind in ("send", "recv"):
+        def logged(self, tensors, peer, tag, _fn=getattr(cls, kind),
+                   _kind=kind):
+            messages.append((_kind, peer, tag, sum(
+                t.numel() * t.element_size() for t in tensors)))
+            return _fn(self, tensors, peer, tag)
+        setattr(cls, kind, logged)
+
+
+def spmd_pipeline_rank(rank, dev):
+    """One rank of the spmd-pipeline phase (see
+    :func:`run_spmd_pipeline_path`)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.configs import resolve
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.core.rad import tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import pipeline as pipe
+    from repro_torch.distributed.params import shard_tree
+    from repro_torch.distributed.sharding import from_local
+    from repro_torch.distributed.steps import loss_and_grad, value_and_grad
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_mesh, make_process_mesh
+    from repro_torch.models import causal_lm
+    from repro_torch.optim import adamw
+
+    cfg = resolve("gpt2-xl").full
+    messages = []
+    log_p2p(messages)
+    meshes = {"model": make_process_mesh((4,), ("model",), dev),
+              "pod": make_process_mesh((2, 2), ("pod", "model"), dev)}
+    shardings = {k: pipe.pipeline_shardings(cfg, m)
+                 for k, m in meshes.items()}
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, seed=0, order=1)
+
+    def batch_at(i):
+        return {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                for k, v in ds.batch(BATCH, i).items()}
+
+    def whole_params():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)              # every rank draws the same tree
+        return causal_lm.init(cfg, gen)
+
+    def release():
+        """Frees the card's and the host's cached blocks (the staged
+        group's pinned buffers among them)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name in ("_accelerator_emptyHostCache", "_host_emptyCache"):
+            if dev.type == "cuda" and hasattr(torch._C, name):
+                getattr(torch._C, name)()    # its name by torch version
+                break
+
+    params = owned_shards(shard_tree(whole_params(), shardings["model"]))
+    release()
+    arg_bytes = local_bytes(params)
+    arg_want = argument_bytes_by_leaves(params, shardings["model"])
+
+    def call(fn, params, mb):
+        """value_and_grad of ``fn`` on this rank's part: the loss, the
+        gradients, and the call's seconds, codec launches in the forward
+        and in the backward, messages and staged counts."""
+        messages.clear()
+        spmd.reset_staged_counts()
+        c0, mid = launch_counts(), {}
+
+        def forward(p):
+            loss = fn(p, mb)
+            mid.update(launch_counts())
+            return loss
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(forward, params)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        c1 = launch_counts()
+        return loss, grads, {
+            "s": seconds, "loss": float(loss),
+            "forward": {n: mid[n] - c0[n] for n in c0},
+            "backward": {n: c1[n] - mid[n] for n in c0},
+            "messages": list(messages), "staged": spmd.staged_counts()}
+
+    def gap_to(reference, grads, mesh, sh):
+        """Rank 0 runs ``reference()`` -> (loss, whole gradients) while the
+        others wait, and frees it after: the gradients' gap to it as one
+        vector (a split leaf scattered from rank 0, a replicated one held
+        on rank 0), and whether every rank holds the same replicated
+        gradients (a float64 checksum of each)."""
+        out, ref_leaves = {}, None
+        if rank == 0:
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            loss, ref_grads = reference()
+            torch.cuda.synchronize(dev)
+            out = {"loss": float(loss), "s": time.perf_counter() - t0,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
+                   / 1e9}
+            ref_leaves = tree_leaves(ref_grads)
+            del ref_grads
+        t0 = time.perf_counter()
+        num = torch.zeros((), dtype=torch.float64, device=dev)
+        den = torch.zeros((), dtype=torch.float64, device=dev)
+        sums = []
+        for j, (mine, s) in enumerate(zip(tree_leaves(grads),
+                                          tree_leaves(sh))):
+            local = mine.to_local().double()
+            if all(isinstance(p, Replicate) for p in s.placements):
+                sums.append(torch.stack([local.sum(), (local * local).sum()]))
+                if rank != 0:
+                    continue
+                theirs = ref_leaves[j].double()
+            else:
+                src = ref_leaves[j] if rank == 0 else torch.empty(
+                    mine.shape, dtype=mine.dtype, device=dev)
+                theirs = distribute_tensor(
+                    src, mesh.device_mesh, s.placements,
+                    src_data_rank=0).to_local().double()
+                del src
+            d = local - theirs
+            num += (d * d).sum()
+            den += (theirs * theirs).sum()
+            del d, theirs, local
+        del ref_leaves
+        both = torch.stack([num, den])
+        dist.all_reduce(both)
+        sig = torch.cat(sums)
+        ends = torch.cat([sig, -sig])
+        dist.all_reduce(ends, op=dist.ReduceOp.MAX)
+        out.update(grad_rel_gap=math.sqrt(float(both[0]) / float(both[1])),
+                   replicated_same=bool(torch.equal(ends[:len(sig)],
+                                                    -ends[len(sig):])),
+                   gap_s=time.perf_counter() - t0)
+        release()
+        return out
+
+    batch = batch_at(0)
+    mb = pipe.microbatch(batch, PIPE_MICRO)
+    # (a) the (4,) model mesh, uncompressed, against autograd
+    fn_a = pipe.make_pipeline_train_fn(cfg, meshes["model"], PIPE_MICRO)
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss_a, grads_a, rec_a = call(fn_a, params, mb)
+    rec_a["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    def autograd_reference():
+        whole = whole_params()
+        loss, _, grads = loss_and_grad(cfg, whole, batch)
+        return loss, grads
+    ref_a = gap_to(autograd_reference, grads_a, meshes["model"],
+                   shardings["model"])
+    del grads_a
+    release()
+
+    # (b) the (2, 2) pod x model mesh with the codec on the pod edge; its
+    # parts are the same shards, on the other mesh
+    params = tree_map(lambda p, s: from_local(p.to_local(), s, p.shape),
+                      params, shardings["pod"])
+    fn_b = pipe.make_pipeline_train_fn(cfg, meshes["pod"], PIPE_MICRO,
+                                       PIPE_SPMD_BASE, use_kernel="auto")
+    loss_b, grads_b, rec_b = call(fn_b, params, mb)
+
+    def single_process_reference():
+        whole = whole_params()
+        single = pipe.make_pipeline_train_fn(
+            cfg, make_mesh((2, 2), ("pod", "model"), [dev] * 4), PIPE_MICRO,
+            PIPE_SPMD_BASE, use_kernel="auto")
+        return value_and_grad(lambda p: single(p, mb), whole)
+    ref_b = gap_to(single_process_reference, grads_b, meshes["pod"],
+                   shardings["pod"])
+
+    # PIPE_SPMD_STEPS AdamW steps, as make_pipeline_train_step composes them;
+    # the first takes (b)'s gradients
+    opt = adamw(3e-4)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = opt.init(params)
+    calls, step_s, update_s = [rec_b], [], []
+    for i in range(PIPE_SPMD_STEPS):
+        if i:
+            _, grads_b, rec = call(fn_b, params,
+                                   pipe.microbatch(batch_at(i), PIPE_MICRO))
+            calls.append(rec)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, state = opt.update(grads_b, state, params)
+        torch.cuda.synchronize(dev)
+        update_s.append(time.perf_counter() - t0)
+        step_s.append(calls[-1]["s"] + update_s[-1])
+        del grads_b
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {n: rec_a["forward"][n] + rec_a["backward"][n]
+                + sum(c["forward"][n] + c["backward"][n] for c in calls)
+                for n in rec_a["forward"]}
+    del params, state
+    release()
+    return {"rank": rank, "coordinate": meshes["pod"].coordinate(),
+            "argument_bytes": arg_bytes, "argument_bytes_want": arg_want,
+            "a": rec_a, "reference_a": ref_a, "b_calls": calls,
+            "reference_b": ref_b, "step_s": step_s, "update_s": update_s,
+            "peak_mem_gb": peak / 1e9, "launches": launches}
+
+
+def run_spmd_pipeline_path(dev):
+    """gpt2-xl full (48 layers, d_model 1600; seed 0, fp32, TF32 off)
+    through the GPipe pipeline with one stage a rank
+    (``make_pipeline_train_fn`` on a process mesh): 4 ranks, each on this
+    card, joined by the host-staged gloo group, 12 layers a rank, batch
+    BATCH × SEQ of ``SyntheticLM`` in PIPE_MICRO micro-batches of 2.  The
+    parts are placed by ``pipeline_shardings`` from the whole tree of seed
+    0, and each rank's argument bytes must equal the shardings' sum.
+
+    (a) the ``(4,)`` ``("model",)`` mesh (no compression): step 1's loss
+        within PIPE_LOSS_GAP and the gradients (one vector) within
+        PIPE_GRAD_GAP of ``loss_and_grad`` on the whole model (rank 0);
+    (b) the ``(2, 2)`` ``("pod", "model")`` mesh with ``use_kernel="auto"``
+        at base ratio PIPE_SPMD_BASE (edge 1 -> 2 at ratio 30, k = 137 a
+        block): step 1's loss and gradients within PIPE_SPMD_GAP of the
+        single-process pipeline on the same mesh shape (rank 0), then
+        PIPE_SPMD_STEPS AdamW(3e-4) steps with finite losses.
+
+    Every call of (b) must launch 8 encodes and 8 decodes over the ranks
+    (rank 1 encodes in the forward and decodes in the backward, rank 2 the
+    other way round) and (a) none; every message on the pod edge must be
+    the wire's bytes exactly and every other the dense boundary's; every
+    rank returns the same loss and holds the same replicated gradients.
+    Prints the step seconds, tokens/s, each rank's peak memory and staged
+    bytes (the replicated leaves' gradient reduction among them).  Four
+    ranks sharing one card through host memory is a check, not a speed
+    any user would see.  Returns the ranks' summed launch counts (rank
+    0's references left out)."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core.compression import ratio_to_k
+    from repro_torch.distributed import pipeline as pipe
+    from repro_torch.kernels import ops
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"spmd pipeline: card free {free / 1e9:.2f} GB of "
+          f"{total / 1e9:.2f} GB before the ranks start")
+    cfg = resolve("gpt2-xl").full
+    n = BATCH // PIPE_MICRO * SEQ * cfg.d_model
+    ratio = float(pipe.pod_edge_ratios(make_mesh(
+        (2, 2), ("pod", "model"), [dev] * 4), PIPE_SPMD_BASE).max())
+    k = ratio_to_k(n, ratio)
+    (nb, kb), (_, words) = ops.codec_wire_shapes(n, k)
+    wire, dense = nb * words * 4 + nb * kb * 4, n * 4
+    t0 = time.perf_counter()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spmd.run(spmd_pipeline_rank, 4,
+                         rdv_dir=str(ROOT / "build" / "spmd"), device=dev,
+                         backend=spmd.STAGED, timeout=SPMD_TIMEOUT)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    wall = time.perf_counter() - t0
+    fails = []
+    codec = ("encode_topk", "decode_topk")
+
+    def check_messages(label, r, rec, slow):
+        """Each message of ``rec``'s call on rank ``r``: one a
+        micro-batch each way on each of its edges, the wire's bytes on
+        the pod edge (1 <-> 2, when ``slow``), the dense bytes elsewhere."""
+        peers = collections.Counter()
+        for kind, peer, tag, nbytes in rec["messages"]:
+            peers[peer] += 1
+            want = wire if slow and {r, peer} == {1, 2} else dense
+            if nbytes != want or abs(peer - r) != 1:
+                fails.append(f"{label} rank {r}: message {kind} peer {peer} "
+                             f"tag {tag} of {nbytes} B, expected {want}")
+        if set(peers.values()) != {2 * PIPE_MICRO} or \
+                len(peers) != (r > 0) + (r < 3):
+            fails.append(f"{label} rank {r}: messages by peer {peers}")
+
+    for r in ranks:
+        rank = r["rank"]
+        if r["argument_bytes"] != r["argument_bytes_want"]:
+            fails.append(f"rank {rank}: argument bytes {r['argument_bytes']}"
+                         f" vs {r['argument_bytes_want']}")
+        if any(r["a"][way][n] for way in ("forward", "backward")
+               for n in r["a"][way]):
+            fails.append(f"(a) rank {rank} launched {r['a']}")
+        check_messages("(a)", rank, r["a"], False)
+        want_fwd = {1: "encode_topk", 2: "decode_topk"}.get(rank)
+        want_bwd = {1: "decode_topk", 2: "encode_topk"}.get(rank)
+        for i, c in enumerate(r["b_calls"]):
+            check_messages(f"(b) call {i}", rank, c, True)
+            for way, name in (("forward", want_fwd), ("backward", want_bwd)):
+                want = {n: PIPE_MICRO if n == name else 0 for n in c[way]}
+                if c[way] != want:
+                    fails.append(f"(b) call {i} rank {rank} {way}: launches "
+                                 f"{c[way]}, expected {want}")
+        if not (r["reference_a"]["replicated_same"]
+                and r["reference_b"]["replicated_same"]):
+            fails.append(f"rank {rank}: replicated gradients differ")
+    for label in ("a", "b_calls"):
+        calls = [r[label] if label == "a" else r[label][0] for r in ranks]
+        if len({c["loss"] for c in calls}) != 1:
+            fails.append(f"{label}: the ranks' losses differ: "
+                         f"{[c['loss'] for c in calls]}")
+    per_call = [{n: sum(r["b_calls"][i]["forward"][n]
+                        + r["b_calls"][i]["backward"][n] for r in ranks)
+                 for n in codec} for i in range(PIPE_SPMD_STEPS)]
+    if any(c != {n: 2 * PIPE_MICRO for n in codec} for c in per_call):
+        fails.append(f"(b) codec launches a call over the ranks {per_call}")
+    r0 = ranks[0]
+    ref_a, ref_b = r0["reference_a"], r0["reference_b"]
+    gaps = {"a_loss": abs(r0["a"]["loss"] - ref_a["loss"])
+            / abs(ref_a["loss"]), "a_grads": ref_a["grad_rel_gap"],
+            "b_loss": abs(r0["b_calls"][0]["loss"] - ref_b["loss"])
+            / abs(ref_b["loss"]), "b_grads": ref_b["grad_rel_gap"]}
+    limits = {"a_loss": PIPE_LOSS_GAP, "a_grads": PIPE_GRAD_GAP,
+              "b_loss": PIPE_SPMD_GAP, "b_grads": PIPE_SPMD_GAP}
+    for key, gap in gaps.items():
+        if not gap <= limits[key]:
+            fails.append(f"{key} gap {gap:.3e} over {limits[key]}")
+    losses = [c["loss"] for c in r0["b_calls"]]
+    if not all(math.isfinite(x) for x in losses):
+        fails.append(f"(b) non-finite loss {losses}")
+    launches = {nm: sum(r["launches"][nm] for r in ranks)
+                for nm in r0["launches"]}
+    steady = r0["step_s"][1:]
+    report = {
+        "card": card_line(), "cfg": cfg.name, "layers_per_rank":
+        cfg.n_layers // 4, "micro_batches": PIPE_MICRO,
+        "micro_batch": BATCH // PIPE_MICRO, "seq": SEQ,
+        "backend": spmd.STAGED,
+        "argument_bytes_per_rank": [r["argument_bytes"] for r in ranks],
+        "pod_edge": {"ratio": ratio, "k": k, "k_per_block": kb,
+                     "blocks": nb, "message_bytes": wire,
+                     "dense_bytes": dense},
+        "a": {"loss": r0["a"]["loss"], "reference": ref_a,
+              "call_s": [r["a"]["s"] for r in ranks],
+              "peak_mem_gb_by_rank": [r["a"]["peak_mem_gb"] for r in ranks],
+              "staged_rank_0": r0["a"]["staged"]},
+        "b": {"losses": losses, "reference": ref_b,
+              "step_s": r0["step_s"], "update_s": r0["update_s"],
+              "steady_step_s": sum(steady) / len(steady),
+              "tokens_per_s": BATCH * SEQ * len(steady) / sum(steady),
+              "staged_by_rank": [r["b_calls"][-1]["staged"] for r in ranks],
+              "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in ranks],
+              "codec_launches_a_call": per_call},
+        "rel_gaps": gaps, "limits": limits, "wall_s": wall,
+        "launches": launches, "failed": fails}
+    print("spmd pipeline path: " + json.dumps(report))
+    if fails:
+        raise AssertionError("spmd pipeline: " + "; ".join(fails))
     return launches
 
 
 # ===================================== a model sharded over processes ==
 SPMD_MOE_ARCH = "mixtral-8x7b"
-SPMD_MOE_LAYERS = 2         # of 32: the 4 ranks share one card's 80 GB
+SPMD_MOE_LAYERS = 1         # of 32: one MoE layer runs every dispatch and set
 SPMD_MOE_STEPS = 1          # Adafactor steps under the default rules
 # the override sets the phase also runs one step of, beside the default
 # rules and ep: the sequence-sharded residual with each MoE layout, and
@@ -4583,6 +4966,7 @@ def main() -> int:
     paths["entry points"] = run_entry_points(dev)
     paths["train pipeline"], pipeline_cases = run_pipeline_path(dev)
     paths["train spmd"] = run_spmd_path(dev)
+    paths["spmd pipeline"] = run_spmd_pipeline_path(dev)
     paths["spmd moe"] = run_spmd_moe_path(dev)
     paths["spmd hybrid"] = run_spmd_hybrid_path(dev)
     paths["spmd xlstm"] = run_spmd_xlstm_path(dev)

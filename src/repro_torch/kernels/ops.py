@@ -3,7 +3,10 @@ the compression hot path.
 
 ``topk_mask(x, k)`` takes a global k, as
 :func:`repro_torch.core.compression.topk_mask` does, and splits it into a
-per-block k (ceil split) for the dense blockwise kernel.  The entry points
+per-block k (ceil split) for the dense blockwise kernel.  The codec's two
+halves, :func:`codec_encode` on the sender and :func:`codec_decode` on the
+receiver, compose to :func:`codec_topk_mask`; the pipeline sends the wire
+between them when a stage boundary crosses processes.  The entry points
 here take the kernel for a CUDA tensor and its plain version for a CPU
 tensor (the wrappers in :mod:`repro_torch.kernels.topk_compress` decide by
 device).
@@ -79,16 +82,43 @@ def _check_mode(x: torch.Tensor, mode: str) -> None:
         raise ValueError(f"mode 'cuda' on a tensor on {x.device}")
 
 
+def codec_wire_shapes(n: int, k: int, block: int = tk.DEFAULT_BLOCK
+                      ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """The shapes of the wire :func:`codec_encode` makes of a tensor of
+    ``n`` entries at global ``k``: values ``(nb, k a block)`` in the
+    tensor's dtype and bitmap ``(nb, block / 32)`` int32 words.  A
+    receiver sizes its buffers by them, from k and the static shape."""
+    nb = -(-int(n) // block)
+    return (nb, min(per_block_k(n, k, block), block)), (nb, block >> 5)
+
+
+def codec_encode(x: torch.Tensor, k: int, mode: str,
+                 block: int = tk.DEFAULT_BLOCK
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sender's half of the codec: ``(values, bitmap)``, the wire of
+    ``x`` at global ``k`` (split per block).  ``mode`` is a resolved
+    policy; the wrapper picks kernel or plain version by ``x``'s
+    device."""
+    _check_mode(x, mode)
+    return tk.encode_topk(x, per_block_k(x.numel(), k, block), block)
+
+
+def codec_decode(values: torch.Tensor, bitmap: torch.Tensor,
+                 shape: Tuple[int, ...], mode: str) -> torch.Tensor:
+    """The receiver's half: the dense tensor of ``shape`` that the wire
+    ``(values, bitmap)`` carries."""
+    _check_mode(values, mode)
+    return tk.decode_topk(values, bitmap, shape)
+
+
 def codec_topk_mask(x: torch.Tensor, k: int, mode: str,
                     block: int = tk.DEFAULT_BLOCK) -> torch.Tensor:
     """Wire-faithful sparsification: encode (threshold search + bitmap +
     packed-value compaction) then decode — the consumer sees exactly what
     the "mask" wire encoding carried.  ``mode`` is a resolved policy; the
     wrappers pick kernel or plain version by ``x``'s device."""
-    _check_mode(x, mode)
-    kpb = per_block_k(x.numel(), k, block)
-    values, bitmap = tk.encode_topk(x, kpb, block)
-    return tk.decode_topk(values, bitmap, x.shape)
+    values, bitmap = codec_encode(x, k, mode, block)
+    return codec_decode(values, bitmap, x.shape, mode)
 
 
 def codec_ef_topk(x: torch.Tensor, residual: torch.Tensor, k: int, mode: str,

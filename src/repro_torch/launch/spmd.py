@@ -11,7 +11,8 @@ share no TCP port.  ``backend`` is the group's (``"gloo"`` carries CPU
 tensors, and some of CUDA tensors' collectives through host memory) or
 :data:`STAGED`, whose group stages every collective's tensors through
 pinned host memory into gloo (:class:`HostStagedGroup`, which counts the
-bytes it stages).  Every rank
+bytes it stages, and carries point-to-point ``send`` / ``recv`` the same
+way).  Every rank
 gets the same ``device``: several ranks may share one card.  Every wait has
 a timeout; a rank that raises makes :func:`run` stop the others and raise
 with that rank's traceback.  The ranks talk over the loopback interface
@@ -43,9 +44,10 @@ _staged = collections.Counter()
 
 def staged_counts() -> dict:
     """``{"<collective>_bytes": n, "<collective>_calls": n}`` this process's
-    :class:`HostStagedGroup` carried since the last reset; the bytes are
-    those copied between the device and the host (inputs out, outputs
-    back, both ways for an in-place collective)."""
+    :class:`HostStagedGroup` carried since the last reset (``send`` and
+    ``recv`` among them); the bytes are those copied between the device
+    and the host (inputs out, outputs back, both ways for an in-place
+    collective)."""
     return dict(_staged)
 
 
@@ -67,14 +69,16 @@ class HostStagedGroup(dist.ProcessGroup):
     gloo group of the same ranks runs the collective on them, the outputs
     are copied back, and the call returns a finished work.  The
     collectives DTensor redistributes with (all-gather, reduce-scatter,
-    all-reduce, all-to-all) and those that place tensors (broadcast,
-    scatter, barrier) are carried; each counts the bytes it
-    staged.  On CPU tensors the staging is a copy, which is how the tests
-    drive it."""
+    all-reduce, all-to-all), those that place tensors (broadcast,
+    scatter, barrier) and point-to-point ``send`` / ``recv`` (a message
+    matched by its tag, as gloo matches it) are carried; each counts the
+    bytes it staged, and waits at most the group's timeout.  On CPU
+    tensors the staging is a copy, which is how the tests drive it."""
 
     def __init__(self, opts, _backend_options=None):
         super().__init__(opts.group_rank, opts.group_size)
         self._name = opts.group_id
+        self._timeout = opts.timeout
         self._gloo = dist.ProcessGroupGloo(
             dist.PrefixStore("host_staged/", opts.store), opts.group_rank,
             opts.group_size, opts.timeout)
@@ -98,7 +102,7 @@ class HostStagedGroup(dist.ProcessGroup):
         h_in = [self._pinned(t).copy_(t) for t in ins]
         h_out = [self._pinned(t).copy_(t) if in_place else self._pinned(t)
                  for t in outs]
-        call(h_out, h_in).wait()
+        call(h_out, h_in).wait(self._timeout)
         for t, h in zip(outs, h_out):
             t.copy_(h)
         moved = list(ins) + list(outs) * (2 if in_place else 1)
@@ -158,6 +162,14 @@ class HostStagedGroup(dist.ProcessGroup):
         return self._run("scatter", outputs, flat,
                          lambda o, i: self._gloo.scatter(
                              o, [i] if flat else [], opts))
+
+    def send(self, tensors, dst, tag):
+        return self._run("send", [], tensors,
+                         lambda _, i: self._gloo.send(i, dst, tag))
+
+    def recv(self, tensors, src, tag):
+        return self._run("recv", tensors, [],
+                         lambda o, _: self._gloo.recv(o, src, tag))
 
     def barrier(self, opts):
         self._gloo.barrier(opts).wait()

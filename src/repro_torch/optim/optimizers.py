@@ -13,9 +13,13 @@ its buffers, holds no third parameter-sized tree).
 Schedules map the step (a 0-dim int tensor) to a 0-dim float32 tensor on
 the CPU, which scales tensors on any device.
 
-On DTensor parameters (a process mesh) the state is placed as the JAX
-package's ``build_jitted`` places it (``generic_spec`` of each leaf's
-shape; the step counter replicated), and the update runs on DTensors.
+On DTensor parameters (a process mesh) the update runs on DTensors.  A
+moment of a parameter's shape (AdamW's, SGD's) is placed as its parameter,
+as the JAX package's ``zeros_like`` places it, so the update moves
+nothing; Adafactor's factors, of other shapes, are placed as the JAX
+package's ``build_jitted`` places them (``generic_spec`` of each leaf's
+shape); the step counter is replicated.  ``build_jitted``'s step places
+its arguments by its in_shardings, whatever ``init`` chose.
 """
 from __future__ import annotations
 
@@ -60,6 +64,13 @@ def _state_zeros(p: torch.Tensor, shape, dtype=torch.float32
         return p.new_zeros(shape, dtype=dtype)
     return zeros(shape, dtype, NamedSharding(mesh, generic_spec(
         tuple(shape), mesh)))
+
+
+def _moment(p: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """A zero moment of ``p``'s shape: on ``p``'s device, or on its process
+    mesh placed as ``p`` is."""
+    return torch.zeros_like(p, dtype=dtype,
+                            memory_format=torch.contiguous_format)
 
 
 def _step0(params) -> torch.Tensor:
@@ -136,7 +147,7 @@ def sgd(lr=1e-2, momentum: float = 0.9, nesterov: bool = False,
     sched = _as_sched(lr)
 
     def init(params):
-        mom = tree_map(lambda p: _state_zeros(p, p.shape, p.dtype),
+        mom = tree_map(lambda p: _moment(p, p.dtype),
                        params) if momentum else None
         return OptState(step=_step0(params), inner=mom)
 
@@ -164,10 +175,9 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     sched = _as_sched(lr)
 
     def init(params):
-        fresh = lambda p: _state_zeros(p, p.shape)  # noqa: E731
         return OptState(step=_step0(params),
-                        inner={"m": tree_map(fresh, params),
-                               "v": tree_map(fresh, params)})
+                        inner={"m": tree_map(_moment, params),
+                               "v": tree_map(_moment, params)})
 
     def update(grads, state, params, consume_grads=False):
         del consume_grads               # computes in new memory

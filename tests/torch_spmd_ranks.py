@@ -40,7 +40,10 @@ DTensors; ``run_xlstm_serve_ranks``
 ``run_encdec_ranks`` (``tests/test_torch_spmd_encdec.py``) takes the
 encoder-decoder's train step, and ``run_encdec_serve_ranks``
 (``tests/test_torch_spmd_encdec_serve.py``) its prefill and greedy decode,
-with the cross-attention K/V on the cache's shards.
+with the cross-attention K/V on the cache's shards.  ``run_pipeline_ranks``
+(``tests/test_torch_spmd_pipeline.py``) runs the GPipe pipeline with one
+stage a rank, each case of ``PIPE_CASES``, logging every message the
+staged group carries and what the slow edge's wire encodes and decodes.
 """
 from __future__ import annotations
 
@@ -121,6 +124,19 @@ SEQPAR_FAMILY_CASES = {
                           n_layers=XLSTM_LAYERS)}
 SEQPAR_ENCDEC_CASES = {
     "encdec-seqpar": _case(ENCDEC_ARCH, set_name="seqpar", **ENCDEC_PAD)}
+# the pipeline with one stage a rank: gpt2-smoke cut to PIPE_LAYERS layers,
+# batch PIPE_BATCH × PIPE_SEQ in PIPE_MICRO micro-batches; case -> (mesh
+# shape, axes, base ratio, use_kernel, tied embeddings)
+PIPE_LAYERS, PIPE_BATCH, PIPE_SEQ, PIPE_MICRO = 8, 8, 32, 4
+PIPE_LR = 3e-4
+PIPE_CASES = {
+    "model4": ((4,), ("model",), 1.0, False, False),
+    "pod_r1_global": ((2, 2), ("pod", "model"), 1.0, False, False),
+    "pod_r1_auto": ((2, 2), ("pod", "model"), 1.0, "auto", False),
+    "pod_r10_global": ((2, 2), ("pod", "model"), 10.0, False, False),
+    "pod_r10_auto": ((2, 2), ("pod", "model"), 10.0, "auto", False),
+    "data_model": ((2, 2), ("data", "model"), 1.0, False, False),
+    "pod_r10_auto_tied": ((2, 2), ("pod", "model"), 10.0, "auto", True)}
 
 
 # the JAX side's helpers, for the subprocess scripts of the test files: a
@@ -1180,3 +1196,160 @@ def run_encdec_serve_ranks(rank, dev, run) -> dict:
             setattr(encdec, name, fn)
     return dict(out, cross_kv_staged_calls=kv_calls,
                 cross_attn_staged_bytes=attn_bytes)
+
+
+def pipeline_cfg(tied=False):
+    """gpt2-smoke with PIPE_LAYERS layers (its embeddings tied, or not)."""
+    from repro_torch.configs import resolve
+    cfg = resolve("gpt2-xl").smoke.replace(n_layers=PIPE_LAYERS,
+                                           max_seq=PIPE_SEQ)
+    return cfg.replace(tie_embeddings=True) if tied else cfg
+
+
+def _log_calls(cls, name, log, entry):
+    """``cls.name`` replaced, for this process, by a wrapper that appends
+    ``entry(self, args, result)`` to ``log`` (unless it is ``None``)."""
+    fn = getattr(cls, name)
+
+    def logged(self, *args):
+        out = fn(self, *args)
+        item = entry(self, args, out)
+        if item is not None:
+            log.append(item)
+        return out
+    setattr(cls, name, logged)
+
+
+def _staged_p2p(rank) -> dict:
+    """Rank 0 sends rank 1 a float and an int tensor, tags 5 and 6; rank 1
+    receives them by tag."""
+    import torch.distributed as dist
+    from repro_torch.launch import spmd
+    spmd.reset_staged_counts()
+    out = {}
+    if rank == 0:
+        dist.send(torch.arange(6, dtype=torch.float32) / 4, 1, tag=5)
+        dist.send(torch.arange(3, dtype=torch.int32) + 7, 1, tag=6)
+    elif rank == 1:
+        a, b = torch.empty(6), torch.empty(3, dtype=torch.int32)
+        dist.recv(a, 0, tag=5)
+        dist.recv(b, 0, tag=6)
+        out["received"] = [a.tolist(), b.tolist()]
+    out["staged"] = spmd.staged_counts()
+    dist.barrier()
+    return out
+
+
+def _pipeline_refusals(dev) -> dict:
+    """``make_pipeline_train_fn`` of each non-dense family's smoke config
+    on a process mesh: the error it raises."""
+    from repro_torch.configs import resolve
+    from repro_torch.distributed import pipeline as pipe
+    from repro_torch.launch.mesh import make_process_mesh
+    mesh = make_process_mesh((4,), ("model",), dev)
+    out = {}
+    for arch in ("mixtral-8x7b", "zamba2-7b", "xlstm-1_3b",
+                 "seamless-m4t-large-v2", "internvl2-2b"):
+        try:
+            pipe.make_pipeline_train_fn(resolve(arch).smoke, mesh,
+                                        PIPE_MICRO)
+            out[arch] = "built"
+        except NotImplementedError as e:
+            out[arch] = f"NotImplementedError: {e}"
+    return out
+
+
+def _pipeline_case(dev, name, run, messages, wire) -> dict:
+    """One case of PIPE_CASES on this rank: the loss, the local shard of
+    every gradient and of the parameters after one AdamW step, the
+    messages the staged group carried in the call and the slow edge's
+    wire (what it encoded and decoded), and the argument bytes against
+    the shardings' sum; rank 0 also runs the single-process pipeline on
+    the whole weights."""
+    import math
+    import torch.distributed as dist
+    from repro_torch.checkpoint import from_numpy_tree, to_numpy_tree
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.distributed import pipeline as pipe
+    from repro_torch.distributed.steps import value_and_grad
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_mesh, make_process_mesh
+    from repro_torch.optim import adamw
+
+    shape, axes, ratio, kern, tied = PIPE_CASES[name]
+    cfg = pipeline_cfg(tied)
+    mesh = make_process_mesh(shape, axes, dev)
+    sh = pipe.pipeline_shardings(cfg, mesh)
+    params = from_numpy_tree(run["params"][tied], dev, sh)
+    batch = pipe.microbatch({k: torch.as_tensor(v, dtype=torch.long,
+                                                device=dev)
+                             for k, v in run["batch"].items()}, PIPE_MICRO)
+    fn = pipe.make_pipeline_train_fn(cfg, mesh, PIPE_MICRO, ratio,
+                                     use_kernel=kern)
+    messages.clear()
+    wire.clear()
+    spmd.reset_staged_counts()
+    loss, grads = value_and_grad(lambda p: fn(p, batch), params)
+    staged = spmd.staged_counts()
+    sent = list(messages)
+    opt = adamw(PIPE_LR)
+    state = opt.init(params)
+    new, _ = opt.update(grads, state, params)
+    out = {"loss": float(loss), "coordinate": mesh.coordinate(),
+           "grads": {k: _local(v)
+                     for k, v in _leaves_by_path(grads).items()},
+           "new": {k: _local(v) for k, v in _leaves_by_path(new).items()},
+           "moments_placed_as_params": all(
+               tuple(m.placements) == tuple(p.placements)
+               for m, p in zip(tree_leaves(state.inner["m"]),
+                               tree_leaves(params))),
+           "argument_bytes": sum(t.to_local().numel() * t.element_size()
+                                 for t in tree_leaves(params)),
+           "argument_bytes_want": sum(
+               math.prod(s.shard_shape(tuple(t.shape))) * t.element_size()
+               for t, s in zip(tree_leaves(params), tree_leaves(sh))),
+           "messages": sent, "staged": staged,
+           "wire": [(way, t.numpy()) for way, t in wire]}
+    if not kern:          # the entry point: its default policy is False
+        step = pipe.make_pipeline_train_step(cfg, mesh, opt, PIPE_MICRO,
+                                             ratio)
+        stepped, st, m = step(params, opt.init(params), batch)
+        out["step_equal"] = float(m["loss"]) == float(loss) and all(
+            torch.equal(a.to_local(), b.to_local())
+            for a, b in zip(tree_leaves(stepped), tree_leaves(new)))
+    if dist.get_rank() == 0:
+        whole = from_numpy_tree(run["params"][tied], dev)
+        single = pipe.make_pipeline_train_fn(
+            cfg, make_mesh(shape, axes, [dev] * math.prod(shape)),
+            PIPE_MICRO, ratio, use_kernel=kern)
+        s_loss, s_grads = value_and_grad(lambda p: single(p, batch), whole)
+        out["single"] = {"loss": float(s_loss),
+                         "grads": to_numpy_tree(s_grads)}
+    return out
+
+
+def run_pipeline_ranks(rank, dev, run) -> dict:
+    """``run``: the weights (``params[tied]``) and the batch.  The staged
+    group's point-to-point plumbing, the refusals, then every case of
+    PIPE_CASES; each message the staged group sends or receives is logged
+    as (kind, peer, tag, bytes), and each tensor the slow edge's wire
+    encodes or decodes as (kind, tensor)."""
+    from repro_torch.distributed import pipeline as pipe
+    from repro_torch.launch import spmd
+
+    out = {"p2p": _staged_p2p(rank), "refusals": _pipeline_refusals(dev)}
+    messages, wire = [], []
+    for kind in ("send", "recv"):
+        _log_calls(spmd.HostStagedGroup, kind, messages,
+                   lambda self, a, _, kind=kind: (
+                       kind, a[1], a[2],
+                       sum(t.numel() * t.element_size() for t in a[0])))
+    _log_calls(pipe._Wire, "encode", wire,
+               lambda self, a, _: None if self.mode is None
+               else ("encode", a[0].detach().clone()))
+    _log_calls(pipe._Wire, "decode", wire,
+               lambda self, a, out: None if self.mode is None
+               else ("decode", out.detach().clone()))
+    out["cases"] = {name: _pipeline_case(dev, name, run, messages, wire)
+                    for name in PIPE_CASES}
+    return out
