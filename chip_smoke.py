@@ -31,8 +31,8 @@
    the step seconds, tokens/s and peak memory, times one more step in its
    parts (forward, backward, clip, update) with CUDA events, and runs 2
    Adafactor steps at the same size for their peak memory;
-7. drives the elastic runtime — gpt2-xl at full width and depth,
-   ``ElasticController`` under the joint planner (AdaTopK ratio 100) with
+7. drives the elastic runtime — gpt2-xl at full width cut to 6 of its
+   48 layers, ``ElasticController`` under the joint planner (AdaTopK ratio 100) with
    ``use_kernel="auto"``, stop-the-world migration and AdamW — for 6 useful
    steps through one CompNode failure (a stage host of the probe's
    schedule, lease 1.5 probe iterations): rollback to a checkpoint,
@@ -44,8 +44,8 @@
    allocation before and peak within each step, update, serialize, restore
    and migration; the obs kit (trace, flight and metrics recorders and a
    watchdog) rides along, and the recorded trace is what 16 analyses;
-8. drives the serving path — gpt2-xl at full width and depth, random
-   weights from seed 0, fp32, served the way ``repro_torch.launch.serve
+8. drives the serving path — gpt2-xl at full width cut to 24 of its 48
+   layers, random weights from seed 0, fp32, served the way ``repro_torch.launch.serve
    --churn`` serves it: 3 stages over ``geo_random(8, seed=0)``, cache_len
    64, 4 slots a replica, the launcher's 6 Poisson requests at 200 req/s
    (prompts of 4-12 tokens, 16-32 new) — a leg with no churn (the failure
@@ -60,10 +60,10 @@
    monolithic prefill (12 tokens) and decode step (batch 1 and 4) in ms
    (median of 20, CUDA events) beside the profiler's kernel time and the
    byte bound;
-9. drives the hybrid family's serving path — zamba2-7b at full width and
-   depth (81 layers: 13 groups of 6 Mamba2 blocks, each followed by one of
-   2 alternating shared attention + MLP blocks, then 3 Mamba2 blocks;
-   random weights from seed 0, fp32) through ``steps.make_prefill_step`` /
+9. drives the hybrid family's serving path — zamba2-7b at full width cut
+   to 27 of its 81 layers (4 of its 13 groups of 6 Mamba2 blocks, each
+   followed by one of 2 alternating shared attention + MLP blocks, then 3
+   Mamba2 blocks; random weights from seed 0, fp32) through ``steps.make_prefill_step`` /
    ``make_decode_step``, the JAX package's entry points for a family it
    never stage-shards: a 128-token prompt (one SSD chunk) at batch 1 and
    128 greedy tokens against a cache of 512, the codec's counts set to 0
@@ -75,9 +75,9 @@
    prints the decode step (batch 1 and 4) and the prefill (128 and 512
    tokens) in ms (median of 20, CUDA events) beside the profiler's kernel
    time and the bound, and the peak memory;
-10. drives the xLSTM family — xlstm-1.3b at full width and depth (48
-   layers: 6 groups of 7 mLSTM blocks and one sLSTM block; d_model 2048;
-   random weights from seed 0, fp32): serves a 128-token prompt at batch 1
+10. drives the xLSTM family — xlstm-1.3b at full width cut to 8 of its 48
+   layers (1 of its 6 groups of 7 mLSTM blocks and one sLSTM block;
+   d_model 2048; random weights from seed 0, fp32): serves a 128-token prompt at batch 1
    and 128 greedy tokens through ``steps.make_prefill_step`` /
    ``make_decode_step`` and trains 3 Adafactor steps (batch 4, seq 256)
    through ``make_train_step``, the codec's counts set to 0 just before
@@ -107,13 +107,38 @@
    memory, and holds seamless-smoke and a 2 + 2-layer variant with a
    padded vocabulary on the card against the CPU (prefill, 4 decode steps
    with their caches, one step's loss and gradients, within rel 1e-5);
-12. drives the error-feedback and dense entry points (``ef_compress``,
+12. drives the six registered configurations no other phase runs —
+   llama3-8b, mistral-nemo-12b, stablelm-12b, granite-3-8b, internvl2-2b
+   and deepseek-moe-16b at full width (random weights from seed 0, fp32):
+   each dense and moe one served at full depth the way
+   ``repro_torch.launch.serve`` serves it (the launcher's 6 Poisson
+   requests; the fewest simulated devices and stages over ``geo_random``
+   that hold its fp32 weights, one leg without churn; deepseek with the
+   ragged dispatch, which drops nothing), its tokens held against the
+   monolithic greedy loop and the first request's staged logits
+   bit-identical to the monolithic model's at every step (deepseek's
+   capacity dispatch too, at batch 1); each, the vlm with 256 patch
+   embeddings at batch 1 and 4 through the step builders, prefilled with
+   128 tokens and decoded 32 greedy tokens, held within 1e-3 of a
+   teacher-forced forward, and its decode step timed beside its bound;
+   each trained 3 AdamW steps at 8 × 128 (the vlm 4 × 128 after its
+   patches, through ``make_train_step``; the rest through
+   ``train_gspmd``) at the most layers up to 8 (mistral 6, deepseek 4,
+   the vlm all 24) whose update fits the card, step 1's loss against
+   ``train_loss`` (rel 1e-6); then ``train_fusion`` on llama3-8b cut to
+   8 layers, 3 AdamW steps under the uniform plan at ratio 100 and 3
+   under AdaTopK, its launches held against the plans' compressed
+   messages and the codec timed at its boundaries; then each smoke
+   config's served logits and one train step's loss, card against CPU
+   (rel 1e-5);
+13. drives the error-feedback and dense entry points (``ef_compress``,
    ``ops.topk_mask``, ``ops.ef_topk``) over 5 steps with the residual
    carried, counting their launches, and holds ``ef_compress`` bit-exact
    against the EF training step's own composition on the card and against
    the CPU's plain version;
-13. drives the GPipe pipeline (``distributed.pipeline``) — gpt2-xl at full
-   width and depth, random weights from seed 0, fp32, batch 8 × 128 of
+14. drives the GPipe pipeline (``distributed.pipeline``) — gpt2-xl at full
+   width cut to 24 of its 48 layers, random weights from seed 0, fp32,
+   batch 8 × 128 of
    ``SyntheticLM`` in 4 micro-batches of 2, all eight mesh positions on
    the card: on the ``(8,)`` model mesh (no compression) its loss and
    gradients against ``make_train_step``'s autograd (rel 1e-6 / 1e-5 as
@@ -126,18 +151,19 @@
    from the same weights and AdamW state; it prints the steady step
    seconds, tokens/s, peak memory, the FLOP bound (``analysis.roofline``
    at the fp32 peak) and the gspmd step beside it;
-14. trains gpt2-xl at full width and depth (seed 0, fp32) with the gspmd
+15. trains gpt2-xl at full width cut to 12 of its 48 layers (seed 0,
+   fp32) with the gspmd
    step of ``build_jitted`` sharded over a ``(2, 2)`` ``("data",
    "model")`` mesh of 4 ranks (``launch.spmd``), each on this card, joined
    by the host-staged gloo group: 1 Adafactor step on a batch 8 × 128;
-   each rank's argument bytes equal the shardings' sum (1,639,513,860),
+   each rank's argument bytes equal the shardings' sum,
    step 1's loss, ``grad_norm`` and updated parameters (one vector) are
    within rel 1e-5 of the unsharded step on the card, and every loss is
    finite; it prints each rank's peak memory, the median step seconds and
    tokens/s, and the step's collectives by kind (CommDebugMode's
    count, the staged group's calls and bytes); no codec runs; then
-   gpt2-xl at full width and depth through the GPipe pipeline with one
-   stage a rank (12 layers each, the parts placed by
+   gpt2-xl at full width cut to 12 layers through the GPipe pipeline
+   with one stage a rank (3 layers each, the parts placed by
    ``pipeline_shardings``, 4 micro-batches of 2 × 128): on the ``(4,)``
    model mesh its loss and gradients against ``loss_and_grad`` (rel 1e-6
    / 1e-5), on the ``(2, 2)`` pod × model mesh with the codec's wire sent
@@ -149,26 +175,27 @@
    the ``(2, 2)`` data × model mesh, mixtral-8x7b at full width cut to 1
    layer (1 Adafactor step under each of the default rules, ``ep``,
    ``seqpar``, ``ep_seqpar``, ``moe_w_seqpar`` and the ragged dispatch),
-   zamba2-7b at full width cut to 13 layers (1 Adafactor step at 4 ×
+   zamba2-7b at full width cut to 13 layers (1 Adafactor step at 2 ×
    256, two SSD chunks) and xlstm-1.3b at full width cut to 8 layers (1
    Adafactor step at 4 × 256; the mLSTM's parallel form and the sLSTM's
    time loop on each rank's rows and heads; rank 0 also serves in
    float64, for the fp32 floor of each served number; the sLSTM bias,
    whose step-1 update rounding decides, held apart from the parameters'
-   gap), and seamless-m4t-large-v2 at full width and depth (12 + 12
-   layers, the vocabulary padded to 256,256; 1 Adafactor step at 4 × 256
-   target tokens over 32 frames, and one under ``seqpar``), each also
-   served sharded (batch 4, a prompt into a placed cache, 8 greedy steps;
+   gap), and seamless-m4t-large-v2 at full width cut to 2 + 2 of its
+   12 + 12 layers (the vocabulary padded to 256,256; 1 Adafactor step at
+   2 × 256 target tokens over 32 frames, and one under ``seqpar``), each
+   also served sharded (batch 4, a prompt into a placed cache, 8 greedy
+   steps;
    mixtral with the capacity and the ragged dispatch; the xLSTM decode
    step leaves its
    matrix memory, and the encoder-decoder's its cross-attention K/V,
    where the cache holds them), held to the same gates against the
    unsharded steps on rank 0, with the served logits, tokens and every
    cache shard; no codec runs;
-15. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
+16. holds ``encode_topk`` and ``decode_topk`` bit-exact against their plain
    versions at every (boundary shape, k a block) that the training,
    elastic and pipeline paths gave them, derived from each step's plan;
-16. checks the output the repository's way: finite losses, RAD equal to
+17. checks the output the repository's way: finite losses, RAD equal to
     single-device autograd on the card at smoke size, the card's loss
     curves (plain and error-feedback) against the CPU's on the same
     weights, gpt2-smoke through ``train_gspmd`` on the card against the
@@ -186,7 +213,7 @@
     pipeline at the JAX reference test's sizes (gpt2-smoke with 8 layers,
     8 × 32, 4 micro-batches) on the card against the CPU (uncompressed
     loss and gradients, compressed loss, within rel 1e-5);
-17. analyses the elastic path's trace (7): written as JSONL, it passes
+18. analyses the elastic path's trace (7): written as JSONL, it passes
     ``python -m repro_torch.obs.export --validate --check-order`` and
     ``python -m repro_torch.obs.critpath --expect-busy`` against the
     controller's ``sim_*_busy_seconds`` counters; the happens-before check
@@ -197,10 +224,10 @@
     run's step and epoch records (tracing changes no simulated number);
     it prints the blame table, the what-if ranking over the failure epoch
     and the length of each section of ``obs.report``;
-18. runs ``python -m repro_torch.check --all-configs --lint --docs`` (every
+19. runs ``python -m repro_torch.check --all-configs --lint --docs`` (every
     arch's smoke OP-DAG planned and checked, the port's lint, the docs'
     links): rc 0;
-19. runs the port's dry run (``launch.dryrun.run_one``) for every arch ×
+20. runs the port's dry run (``launch.dryrun.run_one``) for every arch ×
     shape on the 16×16 and 2×16×16 production meshes in bf16, with
     nothing allocated on any device: each record ``ok`` (or ``skipped``
     where the registry skips the shape), its argument bytes equal to the
@@ -864,10 +891,26 @@ def run_entry_points(dev):
     return launches
 
 
+ELASTIC_LAYERS = 6          # of gpt2-xl's 48, for the script's time: the
+                            # checkpoint blobs scale with depth
 ELASTIC_STEPS = 6           # useful AdamW steps through the failure
 ELASTIC_FAIL_AT = 0.4       # failure time as a fraction of the run (example)
 ELASTIC_RATIO = 100.0       # the joint planner's AdaTopK ratio
 SMOKE_ELASTIC_STEPS = 12    # the smoke-size cross-check's run
+
+
+def depth_cut(cfg, layers):
+    """``cfg`` at full width cut to ``layers`` layers (``None``, or as many
+    as it has: all of them), named as :func:`spmd_moe_cfg` names a cut."""
+    if layers is None or layers >= cfg.n_layers:
+        return cfg
+    return cfg.replace(n_layers=layers, name=f"{cfg.name}-l{layers}")
+
+
+def gpt2_cut(layers):
+    """gpt2-xl at full width, cut to ``layers`` of its 48 layers."""
+    from repro_torch.configs import resolve
+    return depth_cut(resolve("gpt2-xl").full, layers)
 
 
 def mem_total() -> str:
@@ -1029,7 +1072,8 @@ class ElasticMeter:
 
 
 def run_elastic_path(dev):
-    """gpt2-xl full through one CompNode failure: ``ElasticController``
+    """gpt2-xl at full width cut to ELASTIC_LAYERS layers through one
+    CompNode failure: ``ElasticController``
     (joint planner, AdaTopK ratio 100, stop-the-world migration, AdamW,
     checkpoints every 3 steps with 2 kept) for ELASTIC_STEPS useful steps,
     the kernels' launches counted from just before the run to just after,
@@ -1041,7 +1085,6 @@ def run_elastic_path(dev):
     simulator's ``sim_*_busy_seconds`` counters, the step and epoch
     records, and the run's configuration."""
     import torch
-    from repro_torch.configs import resolve
     from repro_torch.core import network
     from repro_torch.data import SyntheticLM
     from repro_torch.elastic import ElasticController
@@ -1052,7 +1095,7 @@ def run_elastic_path(dev):
     from repro_torch.optim import adamw
 
     print(f"elastic: host MemTotal {mem_total()}")
-    cfg = resolve("gpt2-xl").full
+    cfg = gpt2_cut(ELASTIC_LAYERS)
     graph = gpt_opgraph(cfg, BATCH, SEQ)
     shapes = {"tokens": (BATCH, SEQ), "labels": (BATCH, SEQ)}
     prof = graph.annotate(shapes)
@@ -1316,6 +1359,7 @@ def check_against_reference(dev):
     print("reference checks: " + "; ".join(report))
 
 
+SERVE_LAYERS = 24           # of gpt2-xl's 48, for the script's time
 SERVE_DEVICES = 8           # geo_random(8, seed=0): the simulated swarm
 SERVE_STAGES = 3            # where the JAX reference's chain stops being
                             # bit-exact (ROADMAP Queue 3)
@@ -1326,27 +1370,37 @@ SERVE_TIMING_REPS = 20
 SERVE_PROMPT = 12           # prefill length timed
 
 
-def serve_bound_ms(cfg, params, batch, tokens) -> dict:
+def serve_bound_ms(cfg, batch, tokens, cache_len) -> dict:
     """Least time of one monolithic step over ``tokens`` new tokens a
-    sequence at ``batch`` (decode: 1, prefill: the prompt) from the bytes it
-    must move — every matmul weight read once (the blocks' projections and
-    the head), the cache written once (and read once when decoding) — or
-    from its fp32 matmul operations, whichever is larger."""
-    from repro_torch.core.opgraph import tree_leaves
-    w = [params["blocks"]["attn"][k]["w"] for k in ("wq", "wk", "wv", "wo")]
-    w += [leaf for leaf in tree_leaves(params["blocks"]["mlp"])]
-    w.append(params["embed"]["table"] if cfg.tie_embeddings
-             else params["head"]["w"])
-    weight_elems = sum(t.numel() for t in w)
-    cache = (2 * cfg.n_layers * batch * SERVE_CACHE_LEN * cfg.n_kv_heads
+    sequence at ``batch`` (decode: 1, prefill: the prompt) against a
+    ``cache_len``-slot cache, from the bytes it must move — every weight
+    but the embedding tables read once (of a moe block at one token the
+    ``top_k`` experts it routes to; the head, or the tied table it reads
+    as one; not the vlm's ``prefix_proj``, which a decode step skips), the
+    cache written once (and read once when decoding) — or from its fp32
+    matmul operations, whichever is larger."""
+    from repro_torch.models import causal_lm
+
+    d, V = cfg.d_model, cfg.vocab_padded
+    weights = causal_lm.count_params(cfg) - cfg.d_frontend * d
+    if not cfg.tie_embeddings:
+        weights -= V * d
+    if cfg.rope_fraction == 0.0:
+        weights -= cfg.max_seq * d
+    if cfg.family == "moe":
+        if batch * tokens != 1:
+            raise ValueError("the moe bound counts the experts of one token")
+        weights -= cfg.n_layers * (cfg.n_experts - cfg.top_k) * 3 * d \
+            * cfg.d_ff
+    cache = (2 * cfg.n_layers * batch * cache_len * cfg.n_kv_heads
              * cfg.head_dim * 4)
-    nbytes = weight_elems * 4 + cache * (2 if tokens == 1 else 1)
-    ops = 2 * batch * tokens * weight_elems
+    nbytes = weights * 4 + cache * (2 if tokens == 1 else 1)
+    ops = 2 * batch * tokens * weights
     ms = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
           "operations": 1e3 * ops / FP32_OPS_PER_S}
     by = max(ms, key=ms.get)
-    return {"bound_ms": ms[by], "bound_by": by, "weight_bytes":
-            weight_elems * 4, "bytes": nbytes, "operations": ops}
+    return {"bound_ms": ms[by], "bound_by": by, "weight_bytes": weights * 4,
+            "cache_bytes": cache, "bytes": nbytes, "operations": ops}
 
 
 def event_times_ms(fn, reps: int = SERVE_TIMING_REPS, warmup: int = 2):
@@ -1419,10 +1473,38 @@ def time_monolithic(cfg, params, dev) -> dict:
             row = {"median_ms": statistics.median(ms), "min_ms": min(ms),
                    "max_ms": max(ms), "reps": len(ms),
                    "kernel_ms": device_busy_ms(fn)}
-            row.update(serve_bound_ms(cfg, params, batch, tokens))
+            row.update(serve_bound_ms(cfg, batch, tokens, SERVE_CACHE_LEN))
             out[f"{name}_b{batch}"] = row
         del logits, cache
     return out
+
+
+def served_gap(label, got, ref, limit) -> dict:
+    """Served logits ``got`` (positions × the true vocabulary) against
+    ``ref``, a teacher-forced forward's at the same positions: both
+    finite, the largest gap within ``limit`` of the largest |ref|, and the
+    same argmax wherever ref's top-2 margin is over 10 times the gap.
+    Returns the gaps, the positions, the clear ones and, for each position
+    whose argmax differs, its index and ref's top-2 margin (all below 10
+    times the gap)."""
+    import torch
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    gap_abs = float((got - ref).abs().max())
+    gap = gap_abs / float(ref.abs().max())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 10 * gap_abs
+    same = torch.argmax(got, -1) == torch.argmax(ref, -1)
+    n_clear = int(clear.sum())
+    if gap > limit or not bool(same[clear].all()):
+        raise AssertionError(
+            f"{label}: served vs teacher-forced rel gap {gap:.3e} (limit "
+            f"{limit}); argmax differs at {int((~same & clear).sum())} of "
+            f"{n_clear} clear positions")
+    return {"max_abs_gap": gap_abs, "rel_gap": gap, "positions": len(same),
+            "clear_positions": n_clear,
+            "argmax_differs": [[i, float(top2[i, 0] - top2[i, 1])] for i in
+                               torch.nonzero(~same).flatten().tolist()]}
 
 
 def monolithic_greedy(cfg, params, prompt, n_new, cache_len, dev,
@@ -1459,8 +1541,8 @@ def monolithic_greedy(cfg, params, prompt, n_new, cache_len, dev,
 
 
 def run_serve_path(dev):
-    """gpt2-xl full served the way ``repro_torch.launch.serve --churn``
-    serves it: SERVE_STAGES stages over ``geo_random(8, seed=0)``, the
+    """gpt2-xl at full width cut to SERVE_LAYERS layers, served the way
+    ``repro_torch.launch.serve --churn`` serves it: SERVE_STAGES stages over ``geo_random(8, seed=0)``, the
     launcher's 6-request Poisson traffic; the no-churn leg is
     ``derive_midsession_failure``'s dry run (as in the JAX serving
     benchmark), the churn leg ``run_leg`` with the victim it picks.  The
@@ -1470,7 +1552,6 @@ def run_serve_path(dev):
     logits bit-identical at every step, and the monolithic prefill and
     decode are timed."""
     import torch
-    from repro_torch.configs import resolve
     from repro_torch.core.network import geo_random
     from repro_torch.kernels import topk_compress as tk
     from repro_torch.launch.serve import run_leg
@@ -1484,7 +1565,7 @@ def run_serve_path(dev):
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = resolve("gpt2-xl").full
+    cfg = gpt2_cut(SERVE_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = causal_lm.init(cfg, gen)
@@ -1667,6 +1748,9 @@ def check_serve_smoke(dev):
 
 
 HYBRID_ARCH = "zamba2-7b"
+HYBRID_LAYERS = 27          # of 81: 4 groups of 6 Mamba2 blocks, both
+                            # shared blocks, the 3-block tail; for the
+                            # script's time
 HYBRID_CACHE_LEN = 512
 HYBRID_PROMPT = 128         # one SSD chunk: prompts are multiples of 128
 HYBRID_NEW = 128            # greedy decode steps
@@ -1797,9 +1881,9 @@ def check_ssd_full_heads(cfg, dev) -> float:
 
 
 def run_hybrid_serve_path(dev):
-    """zamba2-7b full (81 layers, d_model 3584; random weights from seed 0,
-    fp32) served through ``steps.make_prefill_step`` / ``make_decode_step``
-    — the JAX package's serving entry points for a recurrent family, which
+    """zamba2-7b at full width (d_model 3584; random weights from seed 0,
+    fp32) cut to HYBRID_LAYERS of its 81 layers, served through
+    ``steps.make_prefill_step`` / ``make_decode_step`` — the JAX package's serving entry points for a recurrent family, which
     it never stage-shards: a HYBRID_PROMPT-token prompt at batch 1, then
     HYBRID_NEW greedy tokens, the codec's counts set to 0 just before and
     read just after (serving runs no codec).  A teacher-forced
@@ -1819,7 +1903,7 @@ def run_hybrid_serve_path(dev):
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = resolve(HYBRID_ARCH).full
+    cfg = depth_cut(resolve(HYBRID_ARCH).full, HYBRID_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = causal_lm.init(cfg, gen)
@@ -1860,22 +1944,10 @@ def run_hybrid_serve_path(dev):
     with torch.inference_mode():
         full, _ = causal_lm.forward(cfg, params, seq)
     # the decoded positions, over the true vocabulary (not the -1e30 pad)
-    ref = full[0, HYBRID_PROMPT:, :cfg.vocab]
-    got_logits = torch.cat(decoded)[:, :cfg.vocab]
-    if not (torch.isfinite(got_logits).all() and torch.isfinite(ref).all()):
-        raise AssertionError("serve hybrid: non-finite logits")
-    gap_abs = float((got_logits - ref).abs().max())
-    gap = gap_abs / float(ref.abs().max())
-    top2 = torch.topk(ref, 2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 10 * gap_abs
-    same = torch.argmax(got_logits, -1) == torch.argmax(ref, -1)
-    n_clear = int(clear.sum())
-    if gap > HYBRID_GAP or not bool(same[clear].all()):
-        raise AssertionError(
-            f"serve hybrid: decode vs forward rel gap {gap:.3e} (limit "
-            f"{HYBRID_GAP}); argmax differs at "
-            f"{int((~same & clear).sum())} of {n_clear} clear positions")
-    del full, ref, got_logits
+    vs_forward = served_gap("serve hybrid",
+                            torch.cat(decoded)[:, :cfg.vocab],
+                            full[0, HYBRID_PROMPT:, :cfg.vocab], HYBRID_GAP)
+    del full
     ssd_gap = check_ssd_full_heads(cfg, dev)
     if ssd_gap > SSD_GAP:
         raise AssertionError(f"serve hybrid: ssd_chunked vs ssd_reference "
@@ -1889,14 +1961,7 @@ def run_hybrid_serve_path(dev):
         "cache_len": HYBRID_CACHE_LEN, "prompt": HYBRID_PROMPT,
         "new_tokens": HYBRID_NEW, "serve_s": serve_s,
         "tokens_per_s": HYBRID_NEW / serve_s,
-        "decode_vs_forward": {
-            "max_abs_gap": gap_abs, "rel_gap": gap,
-            "clear_positions": n_clear,
-            # positions (after the prompt) whose argmax differs, each with
-            # the forward's top-2 margin: all below 10 times the gap
-            "argmax_differs": [[i, float(top2[i, 0] - top2[i, 1])]
-                               for i in torch.nonzero(~same).flatten()
-                               .tolist()]},
+        "decode_vs_forward": vs_forward,
         "ssd_chunked_vs_reference_rel": ssd_gap,
         "allocated_before_gb": allocated / 1e9, "peak_mem_gb": peak / 1e9,
         "init_s": init_s, "timing": timing, "launches": got}
@@ -1905,7 +1970,8 @@ def run_hybrid_serve_path(dev):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"serve hybrid path: {HYBRID_NEW} greedy tokens, decode vs forward "
-          f"rel gap {gap:.2e}, argmax equal at {n_clear} clear positions; "
+          f"rel gap {vs_forward['rel_gap']:.2e}, argmax equal at "
+          f"{vs_forward['clear_positions']} clear positions; "
           f"phase {time.perf_counter() - t_phase:.1f} s")
     return got
 
@@ -1956,6 +2022,7 @@ def check_hybrid_smoke(dev):
 
 
 XLSTM_ARCH = "xlstm-1_3b"
+XLSTM_LAYERS = 8            # of 48: 1 of its 6 groups, for the script's time
 XLSTM_PROMPT = 128
 XLSTM_NEW = 128             # greedy decode steps
 XLSTM_CACHE_LEN = XLSTM_PROMPT + XLSTM_NEW  # no KV: the builders ignore it
@@ -2002,7 +2069,7 @@ def xlstm_bound_ms(cfg, batch, tokens) -> dict:
 
 
 def time_xlstm(cfg, params, dev) -> dict:
-    """xlstm-1.3b full through the step builders: ``decode_step`` at batch
+    """xlstm-1.3b through the step builders: ``decode_step`` at batch
     1 and 4 (against a cache from an XLSTM_PROMPT-token prefill), SERVE_
     TIMING_REPS calls each, and the prefill of each prompt of
     XLSTM_PREFILLS at batch 1 for its count of calls (CUDA events): median
@@ -2098,8 +2165,9 @@ def train_xlstm(cfg, params, dev) -> dict:
 
 
 def run_xlstm_path(dev):
-    """xlstm-1.3b full (48 layers: 6 groups of 7 mLSTM blocks and one
-    sLSTM block; d_model 2048; random weights from seed 0, fp32) served
+    """xlstm-1.3b at full width (d_model 2048; random weights from seed 0,
+    fp32) cut to XLSTM_LAYERS of its 48 layers (groups of 7 mLSTM blocks
+    and one sLSTM block), served
     through ``steps.make_prefill_step`` / ``make_decode_step`` — an
     XLSTM_PROMPT-token prompt at batch 1, then XLSTM_NEW greedy tokens — and
     trained for XLSTM_TRAIN_STEPS Adafactor steps through
@@ -2121,7 +2189,7 @@ def run_xlstm_path(dev):
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = resolve(XLSTM_ARCH).full
+    cfg = depth_cut(resolve(XLSTM_ARCH).full, XLSTM_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = causal_lm.init(cfg, gen)
@@ -2160,24 +2228,9 @@ def run_xlstm_path(dev):
     with torch.inference_mode():
         full, _ = causal_lm.forward(cfg, params, seq)
     # the decoded positions, over the true vocabulary (not the -1e30 pad)
-    ref = full[0, XLSTM_PROMPT:, :cfg.vocab]
-    got_logits = torch.cat(decoded)[:, :cfg.vocab]
-    if not (torch.isfinite(got_logits).all() and torch.isfinite(ref).all()):
-        raise AssertionError("xlstm: non-finite logits")
-    gap_abs = float((got_logits - ref).abs().max())
-    gap = gap_abs / float(ref.abs().max())
-    top2 = torch.topk(ref, 2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 10 * gap_abs
-    same = torch.argmax(got_logits, -1) == torch.argmax(ref, -1)
-    n_clear = int(clear.sum())
-    if gap > XLSTM_GAP or not bool(same[clear].all()):
-        raise AssertionError(
-            f"xlstm: decode vs forward rel gap {gap:.3e} (limit "
-            f"{XLSTM_GAP}); argmax differs at "
-            f"{int((~same & clear).sum())} of {n_clear} clear positions")
-    argmax_differs = [[i, float(top2[i, 0] - top2[i, 1])]
-                      for i in torch.nonzero(~same).flatten().tolist()]
-    del full, ref, got_logits, decoded
+    vs_forward = served_gap("xlstm", torch.cat(decoded)[:, :cfg.vocab],
+                            full[0, XLSTM_PROMPT:, :cfg.vocab], XLSTM_GAP)
+    del full, decoded
     timing = time_xlstm(cfg, params, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2194,12 +2247,7 @@ def run_xlstm_path(dev):
         "segments": [s._asdict() for s in causal_lm.segments(cfg)],
         "prompt": XLSTM_PROMPT, "new_tokens": XLSTM_NEW,
         "serve_s": serve_s, "tokens_per_s": XLSTM_NEW / serve_s,
-        "decode_vs_forward": {
-            "max_abs_gap": gap_abs, "rel_gap": gap,
-            "clear_positions": n_clear,
-            # positions (after the prompt) whose argmax differs, each with
-            # the forward's top-2 margin: all below 10 times the gap
-            "argmax_differs": argmax_differs},
+        "decode_vs_forward": vs_forward,
         "allocated_before_gb": allocated / 1e9,
         "serve_peak_mem_gb": serve_peak / 1e9, "init_s": init_s,
         "timing": timing, "training": training, "launches": got}
@@ -2209,7 +2257,8 @@ def run_xlstm_path(dev):
     torch.cuda.empty_cache()
     smoke = check_xlstm_smoke(dev)
     print(f"xlstm path: {XLSTM_NEW} greedy tokens, decode vs forward rel "
-          f"gap {gap:.2e}, argmax equal at {n_clear} clear positions; "
+          f"gap {vs_forward['rel_gap']:.2e}, argmax equal at "
+          f"{vs_forward['clear_positions']} clear positions; "
           f"{XLSTM_TRAIN_STEPS} Adafactor steps, losses "
           f"{training['losses']}; smoke card vs CPU max rel "
           f"{max(smoke.values()):.2e}; phase "
@@ -2567,24 +2616,10 @@ def run_encdec_path(dev):
         full = encdec._decoder_train(cfg, params, seq, memory)
     # the prefill's last position and every decoded one, over the true
     # vocabulary (not the -1e30 pad)
-    ref = full[0, ENCDEC_PREFIX - 1:, :cfg.vocab]
-    got_logits = torch.cat(served)[:, :cfg.vocab]
-    if not (torch.isfinite(got_logits).all() and torch.isfinite(ref).all()):
-        raise AssertionError("encdec: non-finite logits")
-    gap_abs = float((got_logits - ref).abs().max())
-    gap = gap_abs / float(ref.abs().max())
-    top2 = torch.topk(ref, 2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 10 * gap_abs
-    same = torch.argmax(got_logits, -1) == torch.argmax(ref, -1)
-    n_clear = int(clear.sum())
-    if gap > ENCDEC_GAP or not bool(same[clear].all()):
-        raise AssertionError(
-            f"encdec: served vs teacher-forced rel gap {gap:.3e} (limit "
-            f"{ENCDEC_GAP}); argmax differs at "
-            f"{int((~same & clear).sum())} of {n_clear} clear positions")
-    argmax_differs = [[i, float(top2[i, 0] - top2[i, 1])]
-                      for i in torch.nonzero(~same).flatten().tolist()]
-    del full, ref, got_logits, served, memory
+    vs_forward = served_gap("encdec", torch.cat(served)[:, :cfg.vocab],
+                            full[0, ENCDEC_PREFIX - 1:, :cfg.vocab],
+                            ENCDEC_GAP)
+    del full, served, memory
     timing = time_encdec(cfg, params, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2601,12 +2636,8 @@ def run_encdec_path(dev):
         "params": n_params, "src_frames": src_len, "prefix": ENCDEC_PREFIX,
         "cache_len": ENCDEC_CACHE_LEN, "new_tokens": ENCDEC_NEW,
         "serve_s": serve_s, "tokens_per_s": ENCDEC_NEW / serve_s,
-        "served_vs_teacher_forced": {
-            "max_abs_gap": gap_abs, "rel_gap": gap,
-            "positions": len(same), "clear_positions": n_clear,
-            # positions (from the prefill's last) whose argmax differs, each
-            # with the forward's top-2 margin: all below 10 times the gap
-            "argmax_differs": argmax_differs},
+        # positions from the prefill's last
+        "served_vs_teacher_forced": vs_forward,
         "allocated_before_gb": allocated / 1e9,
         "serve_peak_mem_gb": serve_peak / 1e9, "init_s": init_s,
         "timing": timing, "training": training, "launches": got}
@@ -2616,8 +2647,9 @@ def run_encdec_path(dev):
     torch.cuda.empty_cache()
     smoke = check_encdec_smoke(dev)
     print(f"encdec path: {ENCDEC_NEW} greedy tokens, served vs "
-          f"teacher-forced rel gap {gap:.2e}, argmax equal at {n_clear} "
-          f"clear positions; {ENCDEC_TRAIN_STEPS} AdamW steps, losses "
+          f"teacher-forced rel gap {vs_forward['rel_gap']:.2e}, argmax equal "
+          f"at {vs_forward['clear_positions']} clear positions; "
+          f"{ENCDEC_TRAIN_STEPS} AdamW steps, losses "
           f"{training['losses']}; smoke card vs CPU max rel "
           f"{max(smoke.values()):.2e}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
@@ -2686,6 +2718,563 @@ def check_encdec_smoke(dev) -> dict:
     return worst
 
 
+# (arch, the most layers trained; None: the whole model): zoo_depth cuts
+# deeper where the AdamW step would not fit one card
+ZOO = (("llama3-8b", 8), ("mistral-nemo-12b", 6), ("stablelm-12b", 8),
+       ("granite-3-8b", 8), ("internvl2-2b", None), ("deepseek-moe-16b", 4))
+ZOO_UPDATE_BYTES = 24               # a parameter at the AdamW update (see
+                                    # zoo_depth)
+ZOO_CARD_SHARE = 0.9                # of the card's memory the update may hold
+ZOO_DEVICES, ZOO_STAGES = 6, 2      # the serve launcher's defaults (zoo_plan)
+ZOO_PROMPT, ZOO_NEW = 128, 32       # the monolithic serving check
+ZOO_GAP = 1e-3                      # served vs teacher-forced, rel to max |logit|
+ZOO_VLM_BATCHES = (1, 4)
+ZOO_TRAIN_STEPS = 3                 # AdamW steps at 8 × 128 (vlm 4 × 128)
+ZOO_VLM_TRAIN_BATCH = 4
+ZOO_FUSION_ARCH = "llama3-8b"
+ZOO_FUSION_STEPS = 3                # AdamW steps a plan
+ZOO_SMOKE_GAP = 1e-5                # smoke configs, card vs CPU, rel
+
+
+def zoo_depth(cfg, layers, card_bytes) -> tuple:
+    """``cfg`` cut to the most layers, up to ``layers``, whose AdamW step
+    fits ZOO_CARD_SHARE of ``card_bytes``: the update holds
+    ZOO_UPDATE_BYTES a parameter (the parameters, the gradients, whose
+    memory takes the new parameters, the two moments and their new
+    values) beside two of the largest leaf's temporaries.  Returns the
+    config and why it was cut (``None`` where ``layers`` fit)."""
+    from repro_torch.models import causal_lm
+
+    def need(n):
+        return ZOO_UPDATE_BYTES * causal_lm.count_params(depth_cut(cfg, n))
+
+    top = cfg.n_layers if layers is None else layers
+    for n in range(top, 0, -1):
+        if need(n) <= ZOO_CARD_SHARE * card_bytes:
+            cut = depth_cut(cfg, n)
+            why = None if n == top else (
+                f"{depth_cut(cfg, top).name}'s AdamW update holds "
+                f"{need(top) / 1e9:.2f} GB ({ZOO_UPDATE_BYTES} B a "
+                f"parameter), over {ZOO_CARD_SHARE:.0%} of the card's "
+                f"{card_bytes / 1e9:.2f} GB; {cut.name}'s "
+                f"{need(n) / 1e9:.2f} GB fits")
+            return cut, why
+    raise AssertionError(f"zoo {cfg.name}: no depth fits the card")
+
+
+def zoo_served_gap(cfg, params, prefill, decode, prompt, prefix, dev):
+    """``prompt`` (B, ZOO_PROMPT) (after ``prefix``, the vlm's patch
+    embeddings) prefilled and ZOO_NEW greedy tokens decoded, the decoded
+    logits held against a teacher-forced ``causal_lm.forward`` over the
+    served tokens (:func:`served_gap`, within ZOO_GAP).
+    Returns the record and the cache after the prefill with its greedy
+    token (what the decode step is timed on)."""
+    import torch
+    from repro_torch.models import causal_lm
+
+    batch = {"tokens": prompt}
+    if prefix is not None:
+        batch["prefix_embeds"] = prefix
+    logits, cache = prefill(params, batch)
+    timed = (cache, greedy_next(logits))
+    tokens, decoded = [], []
+    for _ in range(ZOO_NEW):
+        tok = greedy_next(logits)
+        tokens.append(tok)
+        logits, cache = decode(params, cache, tok)
+        decoded.append(logits[:, -1, :])
+    del cache
+    seq = torch.cat([prompt] + tokens, dim=1)
+    with torch.inference_mode():
+        full, _ = causal_lm.forward(cfg, params, seq, prefix)
+    start = cfg.n_prefix + ZOO_PROMPT
+    row = served_gap(
+        f"zoo {cfg.name}",
+        torch.stack(decoded, 1)[..., :cfg.vocab].reshape(-1, cfg.vocab),
+        full[:, start:, :cfg.vocab].reshape(-1, cfg.vocab), ZOO_GAP)
+    return {"batch": prompt.shape[0], "prompt": ZOO_PROMPT,
+            "new_tokens": ZOO_NEW, **row}, timed
+
+
+def zoo_decode_ms(cfg, params, decode, timed, cache_len) -> dict:
+    """The decode step on ``timed`` (a prefilled cache and its greedy
+    token): median and spread of SERVE_TIMING_REPS calls (CUDA events),
+    the profiler's kernel time of one call, and the bound."""
+    import statistics
+    cache, tok = timed
+    ms = event_times_ms(lambda: decode(params, cache, tok))
+    out = {"median_ms": statistics.median(ms), "min_ms": min(ms),
+           "max_ms": max(ms), "reps": len(ms),
+           "kernel_ms": device_busy_ms(lambda: decode(params, cache, tok),
+                                       reps=1)}
+    out.update(serve_bound_ms(cfg, tok.shape[0], 1, cache_len))
+    return out
+
+
+def zoo_served_cfg(cfg):
+    """The config ``cfg`` is served with: a capacity-dispatch moe config
+    with the ragged dispatch, as ``tests/test_torch_serving.py`` serves its
+    moe config.  The capacity scales with the tokens of a call, so which
+    slots drop depends on how the leg batches requests (a decode step of 4
+    requests at top-6 of 64 experts has 1 slot an expert; one request
+    alone drops nothing), and a forward over a whole sequence drops slots
+    that its decode steps do not: neither the monolithic greedy loop nor a
+    teacher-forced forward could hold it.  The ragged dispatch drops
+    nothing, so every way of batching computes the same function."""
+    if cfg.family == "moe" and cfg.moe_impl == "capacity":
+        return cfg.replace(moe_impl="ragged")
+    return cfg
+
+
+def zoo_plan(cfg) -> tuple:
+    """The serve launcher's plan for ``cfg`` (``plan_serving`` over
+    ``geo_random(n, seed=0)``, cache SERVE_CACHE_LEN, SERVE_MAX_BATCH slots
+    a replica) on its defaults, ZOO_DEVICES devices and ZOO_STAGES stages,
+    or, where a simulated device cannot hold its stage's fp32 weights and
+    KV slots (the cluster's cards hold 8-24 GB), on the fewest devices
+    from ZOO_DEVICES up and then the fewest stages that it accepts (the
+    launcher's ``--devices`` and ``--n-stages``).  Returns the plan, its
+    device count and the defaults' refusal (``None`` if they fit)."""
+    from repro_torch.core.network import geo_random
+    from repro_torch.serving import (ServingCostModel, ServingPlanError,
+                                     plan_serving)
+
+    refused = None
+    for n_devices in range(ZOO_DEVICES, 4 * ZOO_DEVICES):
+        costs = ServingCostModel(cfg, geo_random(n_devices, seed=0))
+        for n_stages in range(ZOO_STAGES, n_devices + 1):
+            try:
+                return plan_serving(
+                    cfg, costs, list(range(n_devices)), n_stages=n_stages,
+                    cache_len=SERVE_CACHE_LEN,
+                    max_batch=SERVE_MAX_BATCH), n_devices, refused
+            except ServingPlanError as e:
+                refused = refused or str(e)
+    raise AssertionError(f"zoo {cfg.name}: no plan: {refused}")
+
+
+def zoo_serve_staged(cfg, params, dev) -> dict:
+    """``cfg`` (a dense or moe config at full size) served the way
+    ``repro_torch.launch.serve`` serves it: the plan of :func:`zoo_plan`,
+    the launcher's 6 Poisson requests at 200 req/s (prompts of 4-12
+    tokens, 16-32 new), cache 64, 4 slots a replica, one leg without
+    churn (``run_leg``), the codec's
+    counts from just before it to just after.  Each request's tokens are
+    held against the monolithic greedy loop, the first request's with the
+    staged chain's logits bit-identical at every step.
+
+    A capacity-dispatch moe config is served as :func:`zoo_served_cfg`
+    serves it; the capacity dispatch is then held staged against
+    monolithic on the first request alone (batch 1 on both sides)."""
+    import torch
+    from repro_torch.elastic.membership import ChurnTrace
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.launch.serve import run_leg
+    from repro_torch.serving import StageExecutor, poisson_trace, stage_params
+
+    t_plan = time.perf_counter()
+    served = zoo_served_cfg(cfg)
+    plan, n_devices, refused = zoo_plan(served)
+    plan_s = time.perf_counter() - t_plan
+    requests = poisson_trace(SERVE_REQUESTS, rate=SERVE_RATE,
+                             vocab=cfg.vocab, prompt_len=(4, 12),
+                             gen_len=(16, 32), seed=0)
+    tokens = {}
+    tk.reset_launch_counts()            # the leg's counts start here
+    t0 = time.perf_counter()
+    report, _, _ = run_leg(served, params, plan, requests, n_devices,
+                           ChurnTrace(()), SERVE_LEASE, dev,
+                           on_token=lambda rid, tok, now:
+                               tokens.setdefault(rid, []).append(tok))
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    if any(got.values()):
+        raise AssertionError(f"zoo {cfg.name}: the codec ran on the serving "
+                             f"path: {got}")
+    if not report.all_completed or report.n_reroutes:
+        raise AssertionError(f"zoo {cfg.name}: {report}")
+    check_s = {}
+    for c in ([served, cfg] if served is not cfg else [cfg]):
+        t0 = time.perf_counter()
+        execs = [StageExecutor(c, spec, stage_params(c, params, spec),
+                               plan.cache_len, dev) for spec in plan.stages]
+        for i, req in enumerate(requests if c is served else requests[:1]):
+            mono = monolithic_greedy(c, params, req.prompt,
+                                     req.max_new_tokens, plan.cache_len, dev,
+                                     execs if i == 0 else None)
+            if c is served and mono != tokens[req.rid]:
+                raise AssertionError(f"zoo {cfg.name}: {req.rid}: the leg's "
+                                     f"tokens differ from the monolithic "
+                                     f"greedy loop")
+        del execs
+        check_s[c.moe_impl if c.family == "moe" else "dense"] = \
+            time.perf_counter() - t0
+    n_tok = sum(len(t) for t in tokens.values())
+    return {"default_plan_refused": refused, "plan_s": plan_s,
+            "devices": n_devices, "stages": [str(s) for s in plan.stages],
+            "replicas": plan.replicas,
+            "leg": {**report.to_dict(), "wall_s": wall,
+                    "wall_tokens_per_s": n_tok / wall},
+            "staged_bit_identical_steps": requests[0].max_new_tokens,
+            "capacity_staged_bit_identical": served is not cfg,
+            "monolithic_check_s": check_s, "launches": got}
+
+
+def zoo_serve(cfg, dev) -> tuple:
+    """``cfg`` at full width and depth (random weights from seed 0, fp32):
+    the staged leg (:func:`zoo_serve_staged`) for a stage family, then the
+    monolithic path — a ZOO_PROMPT-token prompt at batch 1 (the vlm: after
+    256 patch embeddings, at each of ZOO_VLM_BATCHES, through
+    ``steps.make_prefill_step`` / ``make_decode_step``, as JAX serves a
+    family it never stage-shards) and ZOO_NEW greedy tokens, held against a
+    teacher-forced forward, and the decode step timed.  Returns the record
+    and the launch counts."""
+    import torch
+    from repro_torch.core.opgraph import tree_leaves
+    from repro_torch.distributed.steps import (make_decode_step,
+                                               make_prefill_step)
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.models import causal_lm
+    from repro_torch.serving import STAGE_FAMILIES
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = causal_lm.init(cfg, gen)
+    torch.cuda.synchronize(dev)
+    out = {"init_s": time.perf_counter() - t0,
+           "init_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != causal_lm.count_params(cfg):
+        raise AssertionError(f"zoo {cfg.name}: init drew {n_params} "
+                             f"parameters, count_params says "
+                             f"{causal_lm.count_params(cfg)}")
+    out["params"] = n_params
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = {n: 0 for n in tk.KERNELS}
+    if cfg.family in STAGE_FAMILIES:
+        out["staged"] = zoo_serve_staged(cfg, params, dev)
+        got = out["staged"]["launches"]
+    served = zoo_served_cfg(cfg)
+    out["dispatch"] = served.moe_impl if cfg.family == "moe" else None
+    cache_len = cfg.n_prefix + ZOO_PROMPT + ZOO_NEW
+    prefill = make_prefill_step(served, cache_len=cache_len)
+    decode = make_decode_step(served)
+    tk.reset_launch_counts()            # the monolithic run's counts
+    out["monolithic"] = {}
+    t1 = time.perf_counter()
+    for batch in (ZOO_VLM_BATCHES if cfg.n_prefix else (1,)):
+        prompt = torch.randint(0, cfg.vocab, (batch, ZOO_PROMPT),
+                               generator=gen, device=dev)
+        prefix = torch.randn((batch, cfg.n_prefix, cfg.d_frontend),
+                             generator=gen, device=dev) \
+            if cfg.n_prefix else None
+        t2 = time.perf_counter()
+        row, timed = zoo_served_gap(served, params, prefill, decode, prompt,
+                                    prefix, dev)
+        t3 = time.perf_counter()
+        row["decode"] = zoo_decode_ms(served, params, decode, timed,
+                                      cache_len)
+        row["served_s"], row["timing_s"] = t3 - t2, time.perf_counter() - t3
+        del timed
+        out["monolithic"][f"b{batch}"] = row
+    got = {n: c + got[n] for n, c in launch_counts().items()}
+    if any(got.values()):
+        raise AssertionError(f"zoo {cfg.name}: the codec ran on the serving "
+                             f"path: {got}")
+    out["serve_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["monolithic_s"] = time.perf_counter() - t1
+    out["serve_s"] = time.perf_counter() - t0
+    del params, prefill, decode
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, got
+
+
+def zoo_batch(cfg, batch, seq, step, dev, prefix_gen=None) -> dict:
+    """Batch ``step`` of ``SyntheticLM`` (seed 0, order 1) as the launcher
+    draws it, long tensors on ``dev``; the vlm's patch embeddings from
+    ``prefix_gen`` at the shape ``steps.input_specs`` gives them."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.steps import input_specs
+
+    spec = input_specs(cfg, InputShape("zoo", seq + cfg.n_prefix, batch,
+                                       "train"))
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=0, order=1)
+    out = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+           for k, v in ds.batch(batch, step).items()}
+    for k in ("tokens", "labels"):
+        if tuple(out[k].shape) != tuple(spec[k].shape):
+            raise AssertionError(f"zoo {cfg.name}: {k} {out[k].shape} vs "
+                                 f"input_specs {spec[k].shape}")
+    if cfg.n_prefix:
+        out["prefix_embeds"] = torch.randn(
+            spec["prefix_embeds"].shape, generator=prefix_gen,
+            device=dev, dtype=spec["prefix_embeds"].dtype)
+    return out
+
+
+def zoo_train(cfg, dev) -> dict:
+    """ZOO_TRAIN_STEPS AdamW steps (the launcher's schedule at lr 3e-4) of
+    ``cfg`` from random weights (seed 0, fp32) at BATCH × SEQ: a dense or
+    moe config through the launcher's ``train_gspmd``; the vlm, which the
+    launcher cannot train (its ``SyntheticLM`` makes no patch embeddings,
+    as in JAX), through ``steps.make_train_step`` on batches of
+    ZOO_VLM_TRAIN_BATCH × SEQ text tokens after 256 patch embeddings
+    drawn from seed 0.  Step 1's loss is held against ``train_loss`` on the
+    same weights and batch (rel 1e-6), and every loss must be finite."""
+    import torch
+    from repro_torch.analysis.model_flops import forward_flops
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.launch.train import train_gspmd
+    from repro_torch.models import causal_lm
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    B = ZOO_VLM_TRAIN_BATCH if cfg.n_prefix else BATCH
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    held = [causal_lm.init(cfg, gen)]
+    n_params = causal_lm.count_params(cfg)
+    prefix_gen = torch.Generator(device=dev)
+    prefix_gen.manual_seed(0)
+    batches = [zoo_batch(cfg, B, SEQ, i, dev, prefix_gen)
+               for i in range(ZOO_TRAIN_STEPS)]
+    with torch.no_grad():
+        first_ref = float(causal_lm.train_loss(cfg, held[0], batches[0])[0])
+    opt = adamw(linear_warmup_cosine(3e-4, 10, ZOO_TRAIN_STEPS),
+                weight_decay=0.0)
+    if cfg.n_prefix:
+        params = held.pop()
+        state = opt.init(params)
+        step_fn = make_train_step(cfg, opt)
+        losses, step_s = [], []
+        for b in batches:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, b)
+            torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        route = "steps.make_train_step"
+        del params, state
+    else:
+        # the list hands train_gspmd the only reference to the weights,
+        # which the first update replaces
+        run = train_gspmd(cfg, batch=B, seq=SEQ, steps=ZOO_TRAIN_STEPS,
+                          device=dev, optimizer=opt, params=held.pop(),
+                          data_order=1, log_every=ZOO_TRAIN_STEPS)
+        losses, step_s = run.losses, run.step_seconds
+        route = "launch.train.train_gspmd"
+        del run
+    peak = torch.cuda.max_memory_allocated(dev)
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"zoo {cfg.name}: non-finite loss {losses}")
+    rel = abs(losses[0] - first_ref) / abs(first_ref)
+    if rel > 1e-6:
+        raise AssertionError(f"zoo {cfg.name}: step 1's loss {losses[0]} vs "
+                             f"train_loss {first_ref} (rel {rel:.3e})")
+    steady = step_s[1:]
+    flops = 3 * forward_flops(cfg, B, SEQ)
+    return {"cfg": cfg.name, "layers": cfg.n_layers, "params": n_params,
+            "route": route, "batch": B, "seq": SEQ,
+            "prefix": cfg.n_prefix, "optimizer": "adamw(3e-4, warm-up 10)",
+            "losses": losses, "train_loss_step1": first_ref,
+            "step1_rel_gap": rel, "step_s": step_s,
+            "steady_step_s": sum(steady) / len(steady),
+            "tokens_per_s": B * SEQ * len(steady) / sum(steady),
+            "flops": flops, "flop_bound_ms": 1e3 * flops / FP32_OPS_PER_S,
+            "peak_mem_gb": peak / 1e9}
+
+
+def zoo_fusion(dev) -> tuple:
+    """``train_fusion`` on ZOO_FUSION_ARCH cut as ZOO cuts it (paper
+    testbed 1, use_kernel="auto"): ZOO_FUSION_STEPS AdamW steps under the
+    uniform plan at ratio 100, then as many under the AdaTopK plan, each
+    from seed 0, the launch counts from just before each run to just
+    after, held against its plan's compressed messages.  Returns the
+    record, the summed launches and the (shape, k a block) cases."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.launch.train import train_fusion
+
+    cfg = depth_cut(resolve(ZOO_FUSION_ARCH).full, dict(ZOO)[ZOO_FUSION_ARCH])
+    shapes = {"tokens": (BATCH, SEQ), "labels": (BATCH, SEQ)}
+    out, total, cases = {"cfg": cfg.name}, {n: 0 for n in tk.KERNELS}, set()
+    for compress in ("uniform", "adatopk"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tk.reset_launch_counts()        # this run's counts start here
+        t0 = time.perf_counter()
+        run = train_fusion(cfg, batch=BATCH, seq=SEQ, steps=ZOO_FUSION_STEPS,
+                           lr=3e-4, compress=compress, ratio=100.0,
+                           testbed=1, device=dev, use_kernel="auto",
+                           data_order=1, log_every=ZOO_FUSION_STEPS)
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        msgs = compressed_messages(run.runtime.prog, run.plan)
+        expect = {n: msgs * 2 * ZOO_FUSION_STEPS
+                  if n in ("encode_topk", "decode_topk") else 0
+                  for n in tk.KERNELS}
+        if not all(math.isfinite(x) for x in run.losses):
+            raise AssertionError(f"zoo fusion {compress}: non-finite loss "
+                                 f"{run.losses}")
+        if got != expect or msgs == 0:
+            raise AssertionError(f"zoo fusion {compress}: launches {got}, "
+                                 f"expected {expect} ({msgs} messages)")
+        run_cases = codec_cases(run.runtime.prog, run.plan, shapes)
+        cases |= run_cases
+        out[compress] = {
+            "stages": len(run.schedule.stage_devices()),
+            "compressed_edges": msgs,
+            "codec_cases": sorted([list(s), k] for s, k in run_cases),
+            "ratios": sorted(set(run.plan.edge_ratio.values())),
+            "losses": run.losses, "step_s": run.step_seconds,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "launches": got, "wall_s": wall,
+            "sim_iteration_s": run.sim.iteration_time}
+        total = {n: total[n] + got[n] for n in tk.KERNELS}
+        del run
+    if (BATCH, SEQ, cfg.d_model) not in {tuple(s) for s, _ in cases}:
+        raise AssertionError(f"zoo fusion: no block-output boundary among "
+                             f"{sorted(cases)}")
+    # device µs a launch at each (shape, k) the runs gave the codec,
+    # launched after the counts were read
+    out["codec_device_us"] = []
+    for shape, k in sorted(cases):
+        x = torch.randn(shape, device=dev)
+        row = {"shape": list(shape), "k_per_block": k}
+        row.update(kernel_device_us(
+            lambda: tk.decode_topk(*tk.encode_topk(x, k, tk.DEFAULT_BLOCK),
+                                   shape),
+            {"encode_device_us": "encode_kernel",
+             "decode_device_us": "decode_kernel"}))
+        out["codec_device_us"].append(row)
+        del x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, total, cases
+
+
+def run_zoo_path(dev):
+    """The six registered configurations no other phase runs on the card,
+    at full width (random weights from seed 0, fp32, TF32 off): each
+    served at full depth (:func:`zoo_serve`) and trained ZOO_TRAIN_STEPS
+    AdamW steps at the depth ZOO gives it (:func:`zoo_train`); then
+    ``train_fusion`` on the cut llama3-8b (:func:`zoo_fusion`); then
+    :func:`check_zoo_smoke`.  Prints one zoo line a configuration.  Returns
+    the launch counts and the codec cases of the fusion runs."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.kernels import topk_compress as tk
+
+    t_phase = time.perf_counter()
+    got = {n: 0 for n in tk.KERNELS}
+    seconds = {}
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    for arch, layers in ZOO:
+        t0 = time.perf_counter()
+        full = resolve(arch).full
+        served, launches = zoo_serve(full, dev)
+        got = {n: got[n] + launches[n] for n in tk.KERNELS}
+        print(f"zoo path {arch} serve: " + json.dumps(
+            {"card": card_line(), **served}))
+        cut, why = zoo_depth(full, layers, card_bytes)
+        trained = zoo_train(cut, dev)
+        trained["cut_why"] = why
+        print(f"zoo path {arch} train: " + json.dumps(trained))
+        seconds[arch] = time.perf_counter() - t0
+        print("zoo " + json.dumps({
+            "arch": arch, "served_layers": full.n_layers,
+            "served_params": served["params"],
+            "trained": trained["cfg"], "trained_layers": trained["layers"],
+            "cut_why": why,
+            "trained_params": trained["params"],
+            "peak_gb": max(served["init_peak_gb"], served["serve_peak_gb"],
+                           trained["peak_mem_gb"]),
+            "s": seconds[arch]}))
+    t0 = time.perf_counter()
+    fusion, launches, cases = zoo_fusion(dev)
+    seconds["fusion"] = time.perf_counter() - t0
+    print("zoo fusion: " + json.dumps(fusion))
+    t0 = time.perf_counter()
+    smoke = check_zoo_smoke(dev)
+    seconds["smoke"] = time.perf_counter() - t0
+    del smoke
+    torch.cuda.empty_cache()
+    print(f"zoo path: {len(ZOO)} configurations served at full depth and "
+          f"trained, fusion launches {launches}; seconds "
+          + json.dumps(seconds)
+          + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return {n: got[n] + launches[n] for n in tk.KERNELS}, cases
+
+
+def check_zoo_smoke(dev) -> dict:
+    """Each ZOO config's smoke size with the same weights on the card and
+    on the CPU: a prefill of 8 tokens (the vlm's after its patch
+    embeddings) and 4 decode steps, both fed the CPU's greedy tokens, and
+    one ``make_train_step`` AdamW step; the logits of each step (largest
+    gap over the CPU's largest |logit|) and the loss within
+    ZOO_SMOKE_GAP.  Returns the largest gap of each config."""
+    import torch
+    from repro_torch.configs import resolve
+    from repro_torch.core.rad import tree_map
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.models import causal_lm
+    from repro_torch.optim import adamw
+
+    cpu = torch.device("cpu")
+    out = {}
+    for arch, _ in ZOO:
+        cfg = resolve(arch).smoke
+        params = causal_lm.init(cfg, torch.Generator().manual_seed(0))
+        g = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (2, 17), generator=g)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.n_prefix:
+            batch["prefix_embeds"] = torch.randn(
+                (2, cfg.n_prefix, cfg.d_frontend), generator=g)
+        sides, feed = {}, None
+        for side, d in (("cpu", cpu), ("card", dev)):
+            p = tree_map(lambda t: t.to(d, copy=True), params)
+            b = {k: v.to(d) for k, v in batch.items()}
+            logits, cache = causal_lm.prefill(
+                cfg, p, b["tokens"][:, :8], cache_len=cfg.n_prefix + 16,
+                prefix_embeds=b.get("prefix_embeds"))
+            steps, fed = [logits.cpu()], []
+            for i in range(4):
+                tok = greedy_next(logits) if feed is None else feed[i].to(d)
+                fed.append(tok.cpu())
+                logits, cache = causal_lm.decode_step(cfg, p, cache, tok)
+                steps.append(logits.cpu())
+            feed = fed
+            opt = adamw(1e-3)
+            _, _, m = make_train_step(cfg, opt)(p, opt.init(p), b)
+            sides[side] = (steps, float(m["loss"]))
+        (cs, cl), (hs, hl) = sides["card"], sides["cpu"]
+        out[cfg.name] = {
+            "serve": max(float((a - b).abs().max() / b.abs().max())
+                         for a, b in zip(cs, hs)),
+            "loss": abs(cl - hl) / abs(hl)}
+    if max(max(v.values()) for v in out.values()) > ZOO_SMOKE_GAP:
+        raise AssertionError(f"zoo smoke: card and CPU differ: {out}")
+    print("zoo smoke checks: " + json.dumps(
+        {"max_rel_gap_card_cpu": out, "limit": ZOO_SMOKE_GAP}))
+    return out
+
+
+PIPE_LAYERS = 24            # of gpt2-xl's 48, for the script's time
 PIPE_MICRO = 4              # GPipe micro-batches: 2 sequences each
 PIPE_STEPS = 4              # AdamW steps at base ratio 10
 PIPE_BASE_RATIOS = (1.0, 10.0)  # Eq. 7's pod edge 3r: k 1,366 / 137 a block
@@ -2735,8 +3324,9 @@ def step_device_ms(fn) -> dict:
 
 
 def run_pipeline_path(dev):
-    """gpt2-xl full (48 layers, d_model 1600; seed 0, fp32, TF32 off)
-    through the GPipe pipeline (``distributed.pipeline``), batch BATCH ×
+    """gpt2-xl at full width (d_model 1600; seed 0, fp32, TF32 off) cut to
+    PIPE_LAYERS of its 48 layers, through the GPipe pipeline
+    (``distributed.pipeline``), batch BATCH ×
     SEQ of ``SyntheticLM`` in PIPE_MICRO micro-batches, every mesh
     position on this card:
 
@@ -2758,7 +3348,7 @@ def run_pipeline_path(dev):
     import torch
     from repro_torch.analysis import model_flops
     from repro_torch.analysis.roofline import HW, roofline_terms
-    from repro_torch.configs import InputShape, resolve
+    from repro_torch.configs import InputShape
     from repro_torch.core.compression import ratio_to_k
     from repro_torch.data import SyntheticLM
     from repro_torch.distributed import pipeline as pipe
@@ -2771,7 +3361,7 @@ def run_pipeline_path(dev):
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = resolve("gpt2-xl").full
+    cfg = gpt2_cut(PIPE_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = causal_lm.init(cfg, gen)
@@ -2958,6 +3548,7 @@ def check_pipeline_smoke(dev) -> dict:
 # ============================================= sharded over processes ==
 SPMD_MESH = ((2, 2), ("data", "model"))
 SPMD_STEPS = 1              # Adafactor steps (build_jitted's default)
+SPMD_GPT2_LAYERS = 12       # of gpt2-xl's 48, for the script's time
 SPMD_GAP = 1e-5             # step 1 against the unsharded step, rel
 SPMD_LR = 1e-3              # Adafactor's (build_jitted's default)
 SPMD_TIMEOUT = 900.0        # every wait of the ranks
@@ -2976,7 +3567,7 @@ def spmd_rank(rank, dev):
     import torch.distributed as dist
     from torch.distributed.tensor import distribute_tensor
     from torch.distributed.tensor.debug import CommDebugMode
-    from repro_torch.configs import InputShape, resolve
+    from repro_torch.configs import InputShape
     from repro_torch.core.opgraph import tree_leaves
     from repro_torch.data import SyntheticLM
     from repro_torch.distributed.params import shard_tree
@@ -2989,7 +3580,7 @@ def spmd_rank(rank, dev):
     from repro_torch.optim import adafactor
 
     tk.reset_launch_counts()
-    cfg = resolve("gpt2-xl").full
+    cfg = gpt2_cut(SPMD_GPT2_LAYERS)
     mesh = make_process_mesh(*SPMD_MESH, dev)
     shape = InputShape("spmd", SEQ, BATCH, "train")
     fn, args, meta = build_jitted(cfg, mesh, shape)
@@ -3089,7 +3680,8 @@ def comm_counts(mode) -> dict:
 
 
 def run_spmd_path(dev):
-    """gpt2-xl full (48 layers, d_model 1600; seed 0, fp32) trained by the
+    """gpt2-xl at full width (d_model 1600; seed 0, fp32) cut to
+    SPMD_GPT2_LAYERS of its 48 layers, trained by the
     gspmd step of ``build_jitted`` sharded over a ``(2, 2)`` ``("data",
     "model")`` process mesh: 4 ranks, each on this card, joined by the
     host-staged gloo group (``launch.spmd.STAGED``), SPMD_STEPS Adafactor
@@ -3158,6 +3750,8 @@ def run_spmd_path(dev):
 # ======================================= the pipeline over processes ==
 PIPE_SPMD_BASE = 10.0       # base ratio on the pod mesh: edge 1 -> 2 at 30
 PIPE_SPMD_STEPS = 3         # AdamW steps on the pod mesh
+PIPE_SPMD_LAYERS = 12       # of gpt2-xl's 48 (3 a rank), for the script's
+                            # time
 PIPE_SPMD_GAP = 1e-5        # pod mesh vs the single-process pipeline, rel
 
 
@@ -3181,7 +3775,6 @@ def spmd_pipeline_rank(rank, dev):
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate, distribute_tensor
-    from repro_torch.configs import resolve
     from repro_torch.core.opgraph import tree_leaves
     from repro_torch.core.rad import tree_map
     from repro_torch.data import SyntheticLM
@@ -3194,7 +3787,7 @@ def spmd_pipeline_rank(rank, dev):
     from repro_torch.models import causal_lm
     from repro_torch.optim import adamw
 
-    cfg = resolve("gpt2-xl").full
+    cfg = gpt2_cut(PIPE_SPMD_LAYERS)
     messages = []
     log_p2p(messages)
     meshes = {"model": make_process_mesh((4,), ("model",), dev),
@@ -3371,10 +3964,11 @@ def spmd_pipeline_rank(rank, dev):
 
 
 def run_spmd_pipeline_path(dev):
-    """gpt2-xl full (48 layers, d_model 1600; seed 0, fp32, TF32 off)
-    through the GPipe pipeline with one stage a rank
-    (``make_pipeline_train_fn`` on a process mesh): 4 ranks, each on this
-    card, joined by the host-staged gloo group, 12 layers a rank, batch
+    """gpt2-xl at full width (d_model 1600; seed 0, fp32, TF32 off) cut to
+    PIPE_SPMD_LAYERS of its 48 layers through the GPipe pipeline with one
+    stage a rank (``make_pipeline_train_fn`` on a process mesh): 4 ranks,
+    each on this card, joined by the host-staged gloo group,
+    PIPE_SPMD_LAYERS / 4 layers a rank, batch
     BATCH × SEQ of ``SyntheticLM`` in PIPE_MICRO micro-batches of 2.  The
     parts are placed by ``pipeline_shardings`` from the whole tree of seed
     0, and each rank's argument bytes must equal the shardings' sum.
@@ -3399,7 +3993,6 @@ def run_spmd_pipeline_path(dev):
     any user would see.  Returns the ranks' summed launch counts (rank
     0's references left out)."""
     import torch
-    from repro_torch.configs import resolve
     from repro_torch.core.compression import ratio_to_k
     from repro_torch.distributed import pipeline as pipe
     from repro_torch.kernels import ops
@@ -3411,7 +4004,7 @@ def run_spmd_pipeline_path(dev):
     free, total = torch.cuda.mem_get_info(dev)
     print(f"spmd pipeline: card free {free / 1e9:.2f} GB of "
           f"{total / 1e9:.2f} GB before the ranks start")
-    cfg = resolve("gpt2-xl").full
+    cfg = gpt2_cut(PIPE_SPMD_LAYERS)
     n = BATCH // PIPE_MICRO * SEQ * cfg.d_model
     ratio = float(pipe.pod_edge_ratios(make_mesh(
         (2, 2), ("pod", "model"), [dev] * 4), PIPE_SPMD_BASE).max())
@@ -3549,7 +4142,7 @@ SPMD_FLOOR_FACTOR = 1.5
 SPMD_HYBRID_ARCH = "zamba2-7b"
 SPMD_HYBRID_LAYERS = 13     # of 81: 2 groups of 6, both shared blocks, a tail
 SPMD_HYBRID_STEPS = 1       # Adafactor steps under the default rules
-SPMD_HYBRID_BATCH, SPMD_HYBRID_SEQ = 4, 256   # two SSD chunks of 128
+SPMD_HYBRID_BATCH, SPMD_HYBRID_SEQ = 2, 256   # two SSD chunks of 128
 SPMD_HYBRID_PROMPT = 256
 SPMD_HYBRID_CACHE_LEN = 512
 SPMD_XLSTM_ARCH = "xlstm-1_3b"
@@ -3573,9 +4166,7 @@ SPMD_NOISE_RESIDUAL = 1e-2
 def spmd_moe_cfg():
     """mixtral-8x7b at full width, cut to SPMD_MOE_LAYERS layers."""
     from repro_torch.configs import resolve
-    cfg = resolve(SPMD_MOE_ARCH).full
-    cfg = cfg.replace(n_layers=SPMD_MOE_LAYERS,
-                      name=f"{cfg.name}-l{SPMD_MOE_LAYERS}")
+    cfg = depth_cut(resolve(SPMD_MOE_ARCH).full, SPMD_MOE_LAYERS)
     if cfg.moe_impl != "capacity":
         raise AssertionError(f"{cfg.name}: moe_impl {cfg.moe_impl!r}")
     return cfg
@@ -3584,25 +4175,21 @@ def spmd_moe_cfg():
 def spmd_hybrid_cfg():
     """zamba2-7b at full width, cut to SPMD_HYBRID_LAYERS layers."""
     from repro_torch.configs import resolve
-    cfg = resolve(SPMD_HYBRID_ARCH).full
-    return cfg.replace(n_layers=SPMD_HYBRID_LAYERS,
-                       name=f"{cfg.name}-l{SPMD_HYBRID_LAYERS}")
+    return depth_cut(resolve(SPMD_HYBRID_ARCH).full, SPMD_HYBRID_LAYERS)
 
 
 def spmd_xlstm_cfg():
     """xlstm-1.3b at full width, SPMD_XLSTM_LAYERS of its 48 layers."""
     from repro_torch.configs import resolve
-    cfg = resolve(SPMD_XLSTM_ARCH).full
-    if SPMD_XLSTM_LAYERS == cfg.n_layers:
-        return cfg
-    return cfg.replace(n_layers=SPMD_XLSTM_LAYERS,
-                       name=f"{cfg.name}-l{SPMD_XLSTM_LAYERS}")
+    return depth_cut(resolve(SPMD_XLSTM_ARCH).full, SPMD_XLSTM_LAYERS)
 
 
 SPMD_ENCDEC_ARCH = "seamless-m4t-large-v2"
 SPMD_ENCDEC_STEPS = 1       # Adafactor steps under the default rules
+SPMD_ENCDEC_LAYERS = 2      # encoder and decoder layers, of 12 each, for
+                            # the script's time
 # target tokens a sequence; the source is src_len_for(256) = 32 frames
-SPMD_ENCDEC_BATCH, SPMD_ENCDEC_SEQ = 4, 256
+SPMD_ENCDEC_BATCH, SPMD_ENCDEC_SEQ = 2, 256
 
 
 def owned_shards(tree):
@@ -4321,11 +4908,23 @@ def spmd_xlstm_rank(rank, dev):
         floors=("serve",))
 
 
+def spmd_encdec_cfg():
+    """seamless-m4t-large-v2 at full width, cut to SPMD_ENCDEC_LAYERS
+    encoder and as many decoder layers."""
+    from repro_torch.configs import resolve
+    cfg = resolve(SPMD_ENCDEC_ARCH).full
+    if SPMD_ENCDEC_LAYERS == cfg.n_enc_layers == cfg.n_dec_layers:
+        return cfg
+    return cfg.replace(n_layers=2 * SPMD_ENCDEC_LAYERS,
+                       n_enc_layers=SPMD_ENCDEC_LAYERS,
+                       name=f"{cfg.name}-l{SPMD_ENCDEC_LAYERS}"
+                            f"+{SPMD_ENCDEC_LAYERS}")
+
+
 def spmd_encdec_rank(rank, dev):
     """One rank of the spmd-encdec phase (see :func:`run_spmd_encdec_path`)."""
-    from repro_torch.configs import resolve
     return spmd_lm_rank(
-        rank, dev, resolve(SPMD_ENCDEC_ARCH).full,
+        rank, dev, spmd_encdec_cfg(),
         (SPMD_ENCDEC_BATCH, SPMD_ENCDEC_SEQ),
         {"default": (None, SPMD_ENCDEC_STEPS), "seqpar": ("seqpar", 1)},
         (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW))
@@ -4625,9 +5224,10 @@ def run_spmd_xlstm_path(dev):
 
 
 def run_spmd_encdec_path(dev):
-    """seamless-m4t-large-v2 at full width and depth (12 encoder and 12
-    decoder layers, d_model 1024, 16 heads of 64, d_ff 8192, its vocabulary
-    of 256,206 padded to 256,256; seed 0, fp32) on the ``(2, 2)``
+    """seamless-m4t-large-v2 at full width (d_model 1024, 16 heads of 64,
+    d_ff 8192, its vocabulary of 256,206 padded to 256,256; seed 0, fp32),
+    cut to SPMD_ENCDEC_LAYERS of its 12 encoder and of its 12 decoder
+    layers, on the ``(2, 2)``
     ``("data", "model")`` process mesh of :func:`run_spmd_moe_path`.
     Trains SPMD_ENCDEC_STEPS Adafactor steps of ``build_jitted``'s step on
     ``SyntheticSeq2Seq`` batches of SPMD_ENCDEC_BATCH × SPMD_ENCDEC_SEQ
@@ -4645,11 +5245,14 @@ def run_spmd_encdec_path(dev):
     :func:`run_spmd_lm_path`'s; the records add the bytes of the cross K/V
     a rank holds beside the bytes a decode step stages.  Returns the
     ranks' summed launch counts (no codec: all 0)."""
+    cfg = spmd_encdec_cfg()
     return run_spmd_lm_path(
         dev, "spmd-encdec", spmd_encdec_rank,
         (SPMD_ENCDEC_BATCH, SPMD_ENCDEC_SEQ),
         (SPMD_SERVE_BATCH, SPMD_PROMPT, SPMD_CACHE_LEN, SPMD_NEW),
-        "full width and depth")
+        "full width and depth" if cfg.n_layers == 24 else
+        f"{cfg.n_enc_layers} + {cfg.n_dec_layers} of 12 + 12 layers; full "
+        f"width")
 
 
 # =============================================== analysis, checks, dry run ==
@@ -4936,6 +5539,7 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import topk_compress as tk
 
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
     card = card_line()
     print(card)
@@ -4949,47 +5553,61 @@ def main() -> int:
                                         "replaces": REPLACES[n]}
                                     for n in tk.KERNELS}))
 
-    err = check_kernels(dev)
-    timing = measure_kernels(dev)
-    training = run_training_path(dev)
+    seconds = {}
+
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t0
+        return out
+
+    err = phase("check kernels", check_kernels, dev)
+    timing = phase("measure kernels", measure_kernels, dev)
+    training = phase("train fusion", run_training_path, dev)
     paths = {f"train {label}": r["launches"]
              for label, r in training.items()}
     cases = {(tuple(shape), k) for r in training.values()
              for shape, k in r["codec_cases"]}
-    paths["train gspmd"] = run_gspmd_path(dev)
+    paths["train gspmd"] = phase("train gspmd", run_gspmd_path, dev)
     paths["train elastic"], elastic_cases, elastic_trace = \
-        run_elastic_path(dev)
-    paths["serve"] = run_serve_path(dev)
-    paths["serve hybrid"] = run_hybrid_serve_path(dev)
-    paths["xlstm"] = run_xlstm_path(dev)
-    paths["encdec"] = run_encdec_path(dev)
-    paths["entry points"] = run_entry_points(dev)
-    paths["train pipeline"], pipeline_cases = run_pipeline_path(dev)
-    paths["train spmd"] = run_spmd_path(dev)
-    paths["spmd pipeline"] = run_spmd_pipeline_path(dev)
-    paths["spmd moe"] = run_spmd_moe_path(dev)
-    paths["spmd hybrid"] = run_spmd_hybrid_path(dev)
-    paths["spmd xlstm"] = run_spmd_xlstm_path(dev)
-    paths["spmd encdec"] = run_spmd_encdec_path(dev)
+        phase("train elastic", run_elastic_path, dev)
+    paths["serve"] = phase("serve", run_serve_path, dev)
+    paths["serve hybrid"] = phase("serve hybrid", run_hybrid_serve_path, dev)
+    paths["xlstm"] = phase("xlstm", run_xlstm_path, dev)
+    paths["encdec"] = phase("encdec", run_encdec_path, dev)
+    paths["zoo"], zoo_cases = phase("zoo", run_zoo_path, dev)
+    paths["entry points"] = phase("entry points", run_entry_points, dev)
+    paths["train pipeline"], pipeline_cases = \
+        phase("train pipeline", run_pipeline_path, dev)
+    paths["train spmd"] = phase("train spmd", run_spmd_path, dev)
+    paths["spmd pipeline"] = phase("spmd pipeline", run_spmd_pipeline_path,
+                                   dev)
+    paths["spmd moe"] = phase("spmd moe", run_spmd_moe_path, dev)
+    paths["spmd hybrid"] = phase("spmd hybrid", run_spmd_hybrid_path, dev)
+    paths["spmd xlstm"] = phase("spmd xlstm", run_spmd_xlstm_path, dev)
+    paths["spmd encdec"] = phase("spmd encdec", run_spmd_encdec_path, dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on its path: "
                              f"{launches}")
-    if not elastic_cases or not cases:
+    if not elastic_cases or not cases or not zoo_cases:
         raise AssertionError("a training path ran no compressed boundary")
-    for name, e in check_path_cases(
-            dev, cases | elastic_cases | pipeline_cases).items():
+    for name, e in phase("path cases", check_path_cases, dev,
+                         cases | elastic_cases | pipeline_cases
+                         | zoo_cases).items():
         err[name] = max(err[name], e)
-    check_against_reference(dev)
-    check_gspmd_smoke(dev)
-    check_elastic_smoke(dev)
-    check_serve_smoke(dev)
-    check_hybrid_smoke(dev)
-    check_pipeline_smoke(dev)
-    check_analysis(elastic_trace, card)
+    phase("check reference", check_against_reference, dev)
+    phase("check gspmd smoke", check_gspmd_smoke, dev)
+    phase("check elastic smoke", check_elastic_smoke, dev)
+    phase("check serve smoke", check_serve_smoke, dev)
+    phase("check hybrid smoke", check_hybrid_smoke, dev)
+    phase("check pipeline smoke", check_pipeline_smoke, dev)
+    phase("analysis", check_analysis, elastic_trace, card)
     del elastic_trace
-    run_check_package(card)
-    run_dryrun_path(card)
+    phase("check package", run_check_package, card)
+    phase("dry run", run_dryrun_path, card)
+    print("phase seconds: " + json.dumps(
+        {**seconds, "total": time.perf_counter() - t_start}))
 
     main_shape = timing[(BATCH, SEQ, 1600)]
     kernels = []

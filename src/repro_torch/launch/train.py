@@ -64,7 +64,8 @@ def train_fusion(cfg, *, batch: int = 8, seq: int = 128, steps: int = 50,
                                   simulate_iteration)
     from repro_torch.data import SyntheticLM
     from repro_torch.models.opgraph_models import gpt_opgraph
-    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.optim import (adamw, distinct_storage,
+                                   linear_warmup_cosine)
 
     dev = resolve_device(device)
     log = log or slog.get_logger("train")
@@ -101,7 +102,9 @@ def train_fusion(cfg, *, batch: int = 8, seq: int = 128, steps: int = 50,
         b = ds.batch(batch, i)
         t0 = time.perf_counter()
         loss, grads = runtime.train_step(params, [b])
-        params, state = opt.update(grads, state, params)
+        # the step owns its gradients: the update computes in their memory
+        params, state = opt.update(distinct_storage(grads), state, params,
+                                   consume_grads=True)
         del grads
         losses.append(float(loss))
         if dev.type == "cuda":

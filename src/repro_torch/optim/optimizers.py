@@ -180,13 +180,24 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                                "v": tree_map(_moment, params)})
 
     def update(grads, state, params, consume_grads=False):
-        del consume_grads               # computes in new memory
+        """The step computes in new memory, or with ``consume_grads``
+        (gradients of distinct memory that the caller does not read again)
+        in each fp32 gradient of an fp32 parameter, whose memory then holds
+        the new parameter: the update then holds 24 bytes a parameter (the
+        parameters, the moments and their new values, the gradients), not
+        28.  In place or not, the arithmetic is the same, op for op.  On
+        DTensors it computes in new memory: the card's torch has refused
+        sharded ops that a CPU build accepts, and no path there runs
+        AdamW's update on DTensors with its gradients given up."""
         t = state.step + 1
         lr_t = sched(state.step)
         bc1 = 1 - _f32(b1) ** _f32(t)
         bc2 = 1 - _f32(b2) ** _f32(t)
 
         def leaf(p, g, m_, v_):
+            if consume_grads and g.dtype == p.dtype == torch.float32 \
+                    and not is_dtensor(g):
+                return leaf_in_grad(p, g, m_, v_)
             g32 = g.to(torch.float32)
             m = b1 * m_ + (1 - b1) * g32
             v = b2 * v_ + (1 - b2) * torch.square(g32)
@@ -194,6 +205,18 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             new_p = (p - lr_t * (upd + weight_decay * p.to(torch.float32))
                      ).to(p.dtype)
             return new_p, m, v
+
+        def leaf_in_grad(p, g, m_, v_):
+            # leaf's ops in its order, the gradient's memory reused once
+            # the moments have read it: at most two leaf-sized temporaries
+            m = torch.mul(m_, b1)
+            m.add_(torch.mul(g, 1 - b1))
+            v = torch.mul(v_, b2)
+            v.add_(torch.square(g, out=g).mul_(1 - b2))
+            upd = torch.div(m, bc1)
+            upd.div_(torch.div(v, bc2, out=g).sqrt_().add_(eps))
+            upd.add_(torch.mul(p, weight_decay)).mul_(lr_t)
+            return torch.sub(p, upd, out=g), m, v
 
         out = tree_map(leaf, params, grads, state.inner["m"],
                        state.inner["v"])

@@ -168,7 +168,9 @@ def test_vlm_needs_its_prefix():
         t_lm.forward(s["cfg_t"], s["pt"], s["bt"]["tokens"])
 
 
-@pytest.mark.parametrize("arch", ["gpt2-xl", "llama3-8b"])
+@pytest.mark.parametrize("arch", ["gpt2-xl", "llama3-8b", "mistral-nemo-12b",
+                                  "stablelm-12b", "granite-3-8b",
+                                  "internvl2-2b", "deepseek-moe-16b"])
 def test_train_loss_grads_match_jax(arch):
     s = lm_setup(arch)
     (lj, _), gj = jax.value_and_grad(

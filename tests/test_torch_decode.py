@@ -1,9 +1,10 @@
 """The port's decode path against the JAX package, on the same weights, on
 the CPU: ``attn_prefill`` / ``attn_decode``, ``causal_lm.prefill`` /
 ``decode_step`` / ``cache_init`` (dense and moe, the smoke variants of
-deepseek-moe-16b and mixtral-8x7b among them), the moe family's
-``forward`` and ``train_loss``, and the step builders.  The hybrid family's
-decode path is held in ``tests/test_torch_hybrid.py``.
+deepseek-moe-16b and mixtral-8x7b among them; ``tests/test_torch_zoo.py``
+runs the other dense configs' smoke variants through the same checks),
+the moe family's ``forward`` and ``train_loss``, and the step builders.
+The hybrid family's decode path is held in ``tests/test_torch_hybrid.py``.
 
 Logits are held at rtol 1e-5, atol 1e-6 (the frameworks sum in other
 orders); the caches hold keys and values of unit scale, deep in the stack,
@@ -126,6 +127,10 @@ LMS = ["gpt2-xl", "llama3-8b", "moe", "moe-top3-shared-window",
 
 @pytest.mark.parametrize("name", LMS)
 def test_prefill_and_decode_match_jax(name):
+    check_prefill_and_decode_match_jax(name)
+
+
+def check_prefill_and_decode_match_jax(name):
     """prefill + 4 decode steps, teacher-forced on JAX's greedy tokens:
     logits and every cache leaf at each step."""
     cfg_j, cfg_t, pj, pt = _lm(name)
@@ -149,6 +154,10 @@ def test_prefill_and_decode_match_jax(name):
 
 @pytest.mark.parametrize("name", LMS)
 def test_decode_logits_equal_own_forward(name):
+    check_decode_logits_equal_own_forward(name)
+
+
+def check_decode_logits_equal_own_forward(name):
     """Every decode step's logits equal the full-sequence forward's at that
     position; the input cache is left as it was."""
     _, cfg, _, pt = _lm(name)

@@ -181,6 +181,39 @@ def test_adafactor_consuming_its_gradients_gives_the_same_numbers():
     assert runs[0][2] == runs[1][2]
 
 
+@pytest.mark.parametrize("weight_decay", [0.0, 0.1])
+def test_adamw_consuming_its_gradients_gives_the_same_numbers(weight_decay):
+    """AdamW's ``update(..., consume_grads=True)`` writes each fp32 leaf's
+    new value into its gradient's memory and gives the functional update's
+    parameters and moments bit for bit over three steps (a warm-up
+    schedule, so the learning rate and both bias corrections move), and
+    leaves the parameters and the state it was given as they were."""
+    opt = t_optim.adamw(t_optim.linear_warmup_cosine(1e-2, 2, 3),
+                        weight_decay=weight_decay)
+    params, _ = _stacked_tree(0)
+    want_p = got_p = from_numpy_tree(params, CPU)
+    want_st, got_st = opt.init(want_p), opt.init(got_p)
+    for step in range(3):
+        _, grads = _stacked_tree(step + 1)
+        want_p, want_st = opt.update(from_numpy_tree(grads, CPU), want_st,
+                                     want_p)
+        gt = from_numpy_tree(grads, CPU)
+        before = [t.clone() for t in jax.tree_util.tree_leaves(
+            (got_p, got_st.inner))]
+        ptrs = [t.data_ptr() for t in jax.tree_util.tree_leaves(gt)]
+        new_p, new_st = opt.update(gt, got_st, got_p, consume_grads=True)
+        for a, b in zip(jax.tree_util.tree_leaves((got_p, got_st.inner)),
+                        before):
+            assert torch.equal(a, b)
+        assert [t.data_ptr() for t in jax.tree_util.tree_leaves(new_p)] \
+            == ptrs
+        got_p, got_st = new_p, new_st
+        for a, b in zip(jax.tree_util.tree_leaves((got_p, got_st.inner)),
+                        jax.tree_util.tree_leaves((want_p, want_st.inner))):
+            assert torch.equal(a, b)
+        assert int(got_st.step) == int(want_st.step) == step + 1
+
+
 def test_sharded_loader_gives_host_values_as_long_on_the_device():
     ds = SyntheticLM(vocab=97, seq_len=12, seed=0, order=1)
     host = [ds.batch(3, i) for i in range(2)]

@@ -68,8 +68,9 @@ def test_gpt2_xl_full_plans_equal_jax(testbed):
     assert any(r > 1.0 for r in tplans["adatopk"].edge_ratio.values())
 
 
-def _full(side_core, resolve, gpt, testbed):
-    graph = gpt(resolve("gpt2-xl").full, BATCH, SEQ)
+def _full(side_core, resolve, gpt, testbed, layers=None):
+    cfg = resolve("gpt2-xl").full
+    graph = gpt(cfg.replace(n_layers=layers) if layers else cfg, BATCH, SEQ)
     return graph, graph.annotate(SHAPES), \
         side_core.network.paper_testbed(testbed, seed=0)
 
@@ -126,11 +127,22 @@ def test_gpt2_xl_full_joint_plan_fill_and_throughput_equal_jax(testbed):
 
 @pytest.mark.parametrize("mode", ["stop", "overlap"])
 def test_gpt2_xl_full_elastic_drive_equals_jax(mode):
-    """The elastic drive ``chip_smoke.py`` trains on the card, timing-only
-    here: gpt2-xl full on paper testbed 1 under the joint planner (ratio
-    100), one stage host of the probe's schedule lost at 0.4 of a 6-step
-    run, lease 1.5 probe iterations, checkpoints every 3 steps, 2 kept.
-    Epochs, steps, clock and plans equal the JAX controller's."""
+    """The elastic drive, timing-only here: gpt2-xl full on paper testbed
+    1 under the joint planner (ratio 100), one stage host of the probe's
+    schedule lost at 0.4 of a 6-step run, lease 1.5 probe iterations,
+    checkpoints every 3 steps, 2 kept.  Epochs, steps, clock and plans
+    equal the JAX controller's."""
+    _elastic_drive_equals_jax(mode, None)
+
+
+@pytest.mark.parametrize("mode", ["stop", "overlap"])
+def test_gpt2_xl_cut_elastic_drive_equals_jax(mode):
+    """The same drive at the depth ``chip_smoke.py`` trains on the card
+    (``ELASTIC_LAYERS``: 6 of gpt2-xl's 48 layers, at full width)."""
+    _elastic_drive_equals_jax(mode, 6)
+
+
+def _elastic_drive_equals_jax(mode, layers):
     import dataclasses
     import repro.elastic as je
     import repro.core as jc
@@ -141,7 +153,7 @@ def test_gpt2_xl_full_elastic_drive_equals_jax(mode):
             (jc, je, j_resolve, j_gpt, {}),
             (tc, te, t_resolve, t_gpt, {"device": "cpu",
                                          "use_kernel": "auto"})):
-        graph, prof, cluster = _full(core, resolve, gpt, 1)
+        graph, prof, cluster = _full(core, resolve, gpt, 1, layers)
         common = dict(n_micro=2, planner="joint", joint_ratio=100.0, **kw)
         probe = el.ElasticController(graph, prof, cluster,
                                      el.ChurnTrace(()), **common)
