@@ -30,7 +30,7 @@ from .opgraph import OpData, OpGraph, OpProfile, OpType
 from .rad import (PipelineProgram, init_ef_state, pipeline_loss_and_grad,
                   pipeline_loss_and_grad_ef, tree_map)
 from .scheduler import Schedule
-from ..obs.trace import CAT_BWD, CAT_ENCODE, CAT_FWD, CAT_TRANSFER
+from ..obs.trace import CAT_BWD, CAT_ENCODE, CAT_FWD, CAT_TRANSFER, span
 
 
 # ========================================================== telemetry hook ==
@@ -157,9 +157,8 @@ class DecentralizedRuntime:
     """End-to-end FusionLLM runtime over a Schedule (broker's output).
 
     ``train_step`` runs n_micro micro-batches through FP+BP with per-edge
-    compression and returns (mean loss, accumulated grads, OpData traffic
-    log).  Gradient identity: messages with ``actual_op_user`` set are
-    boundary gradients keyed producer->user (paper Table 3).
+    compression and returns (mean loss, accumulated grads), inside the
+    profiler span ``rad.step``.
 
     ``plan.error_feedback=True`` dispatches to the EF-SGD gradient transport
     (:func:`repro.core.rad.pipeline_loss_and_grad_ef`); the residual memory
@@ -188,14 +187,10 @@ class DecentralizedRuntime:
         self.prog = PipelineProgram.build(graph, schedule.pipeline_subdags(graph))
         self.comp_nodes = [CompNodeRuntime(dev, s)
                            for s, dev in enumerate(schedule.stage_devices())]
-        self.traffic: List[OpData] = []
         self.telemetry = telemetry
         self.trace = trace
         self.ef_state: Optional[Dict[str, torch.Tensor]] = None
         self.step_index = 0
-
-    def _log(self, msg: OpData) -> None:
-        self.traffic.append(msg)
 
     def _timing_cb(self, mb_idx: int):
         trace = self.trace if getattr(self.trace, "enabled", False) else None
@@ -239,43 +234,29 @@ class DecentralizedRuntime:
     def train_step(self, params: Mapping[str, Any],
                    micro_batches: Sequence[Mapping[str, Any]]
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        total = None
-        acc: Optional[Dict[str, Any]] = None
-        for mb_idx, mb in enumerate(micro_batches):
-            mb = self._to_device(mb)
-            cb = self._timing_cb(mb_idx)
-            kcb = self._kernel_cb(mb_idx)
-            if self.plan.error_feedback:
-                if self.ef_state is None:
-                    self.ef_state = init_ef_state(self.prog, params, mb)
-                loss, grads, self.ef_state = pipeline_loss_and_grad_ef(
-                    self.prog, params, mb, self.plan, self.ef_state,
-                    self.use_kernel, timing_cb=cb, trace=self.trace,
-                    kernel_cb=kcb)
-            else:
-                loss, grads = pipeline_loss_and_grad(
-                    self.prog, params, mb, self.plan, self.use_kernel,
-                    timing_cb=cb, trace=self.trace, kernel_cb=kcb)
-            # traffic accounting (envelope per cross-stage edge, FP + BP)
-            for si, sd in enumerate(self.prog.subdags):
-                for a in sd.required_acti:
-                    self._log(OpData(name=a,
-                                     op_users=tuple(self.graph.users[a]),
-                                     micro_batch=mb_idx,
-                                     compress_cfg={"ratio": self._edge_ratio(a, sd)}))
-                for (prod, user) in sd.send_grad:
-                    self._log(OpData(name=prod, op_users=(user,),
-                                     actual_op_user=user, micro_batch=mb_idx,
-                                     compress_cfg={"ratio": self.plan.ratio(prod, user)}))
-            total = loss if total is None else total + loss
-            acc = grads if acc is None else tree_map(torch.add, acc, grads)
-        n = float(len(micro_batches))
-        self.step_index += 1
-        return total / n, tree_map(lambda g: g / n, acc)
-
-    def _edge_ratio(self, producer: str, sd) -> float:
-        cs = [n for n in sd.node_names if producer in self.graph.nodes[n].args]
-        return max([self.plan.ratio(producer, c) for c in cs] or [1.0])
+        with span("rad.step"):
+            total = None
+            acc: Optional[Dict[str, Any]] = None
+            for mb_idx, mb in enumerate(micro_batches):
+                mb = self._to_device(mb)
+                cb = self._timing_cb(mb_idx)
+                kcb = self._kernel_cb(mb_idx)
+                if self.plan.error_feedback:
+                    if self.ef_state is None:
+                        self.ef_state = init_ef_state(self.prog, params, mb)
+                    loss, grads, self.ef_state = pipeline_loss_and_grad_ef(
+                        self.prog, params, mb, self.plan, self.ef_state,
+                        self.use_kernel, timing_cb=cb, trace=self.trace,
+                        kernel_cb=kcb)
+                else:
+                    loss, grads = pipeline_loss_and_grad(
+                        self.prog, params, mb, self.plan, self.use_kernel,
+                        timing_cb=cb, trace=self.trace, kernel_cb=kcb)
+                total = loss if total is None else total + loss
+                acc = grads if acc is None else tree_map(torch.add, acc, grads)
+            n = float(len(micro_batches))
+            self.step_index += 1
+            return total / n, tree_map(lambda g: g / n, acc)
 
 
 # ======================================================= timing simulator ==

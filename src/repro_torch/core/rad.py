@@ -32,7 +32,7 @@ import torch
 from .compression import (CompressionPlan, KernelPolicy, compress_for_edge,
                           dense_payload_bytes, plan_none)
 from .opgraph import OpGraph, OpType, SubDag, tree_leaves
-from ..obs.trace import CAT_ENCODE
+from ..obs.trace import CAT_ENCODE, span
 
 
 Params = Mapping[str, Any]
@@ -258,11 +258,12 @@ def pipeline_forward(prog: PipelineProgram, params: Params,
         ext = {a: mailbox[(a, si)] for a in sd.required_acti}
         received.append(ext)
         t0 = time.perf_counter() if timing_cb else 0.0
-        p_leaf = _leaf_params(stage_params[si])
-        e_leaf = {a: v.detach().requires_grad_(v.is_floating_point())
-                  for a, v in ext.items()}
-        with torch.enable_grad():
-            sends, loss = fn(p_leaf, e_leaf, stage_inputs[si])
+        with span(f"rad.fwd.s{si}"):
+            p_leaf = _leaf_params(stage_params[si])
+            e_leaf = {a: v.detach().requires_grad_(v.is_floating_point())
+                      for a, v in ext.items()}
+            with torch.enable_grad():
+                sends, loss = fn(p_leaf, e_leaf, stage_inputs[si])
         if timing_cb:
             _sync((sends, loss))
             timing_cb(si, False, time.perf_counter() - t0)
@@ -279,12 +280,13 @@ def pipeline_forward(prog: PipelineProgram, params: Params,
                 # plan is keyed per (producer op, consumer op) — same ratio
                 # for all consumers on one CompNode by construction.
                 ratio = max([plan.ratio(a, c) for c in consumer_ops] or [1.0])
-                mailbox[(a, cj)] = _traced_compress(
-                    trace, f"enc {a}->s{cj}", f"stage{si}", False, ratio,
-                    lambda out=out, ratio=ratio: compress_for_edge(
-                        out, ratio, use_kernel, compress_bwd),
-                    kernel_cb=kernel_cb, stage=si,
-                    dense_bytes=dense_payload_bytes(out))
+                with span("rad.wire"):
+                    mailbox[(a, cj)] = _traced_compress(
+                        trace, f"enc {a}->s{cj}", f"stage{si}", False, ratio,
+                        lambda out=out, ratio=ratio: compress_for_edge(
+                            out, ratio, use_kernel, compress_bwd),
+                        kernel_cb=kernel_cb, stage=si,
+                        dense_bytes=dense_payload_bytes(out))
     return total_loss, vjps, received
 
 
@@ -312,7 +314,8 @@ def pipeline_backward(prog: PipelineProgram, vjps: List[StageVjp],
                 raise RuntimeError(f"missing boundary gradient for {a!r}")
             sends_cot[a] = g
         t0 = time.perf_counter() if timing_cb else 0.0
-        p_cot, ext_cot = vjps[si]((sends_cot, 1.0))
+        with span(f"rad.bwd.s{si}"):
+            p_cot, ext_cot = vjps[si]((sends_cot, 1.0))
         if timing_cb:
             _sync((p_cot, ext_cot))
             timing_cb(si, True, time.perf_counter() - t0)
@@ -322,13 +325,14 @@ def pipeline_backward(prog: PipelineProgram, vjps: List[StageVjp],
             producer_ops_here = [n for n in sd.node_names
                                  if a in prog.graph.nodes[n].args]
             ratio = max([plan.ratio(a, c) for c in producer_ops_here] or [1.0])
-            g = _traced_compress(
-                trace, f"enc grad({a})", f"stage{si}", True, ratio,
-                lambda g=g, ratio=ratio: compress_for_edge(g, ratio,
-                                                           use_kernel),
-                kernel_cb=kernel_cb, stage=si,
-                dense_bytes=dense_payload_bytes(g))
-            grad_mail[a] = grad_mail[a] + g if a in grad_mail else g
+            with span("rad.wire"):
+                g = _traced_compress(
+                    trace, f"enc grad({a})", f"stage{si}", True, ratio,
+                    lambda g=g, ratio=ratio: compress_for_edge(g, ratio,
+                                                               use_kernel),
+                    kernel_cb=kernel_cb, stage=si,
+                    dense_bytes=dense_payload_bytes(g))
+                grad_mail[a] = grad_mail[a] + g if a in grad_mail else g
     return grads
 
 
@@ -413,7 +417,8 @@ def pipeline_loss_and_grad_ef(prog: PipelineProgram, params: Params,
         sd = prog.subdags[si]
         sends_cot = {a: grad_mail[a] for a in sd.send_acti}
         t0 = time.perf_counter() if timing_cb else 0.0
-        p_cot, ext_cot = vjps[si]((sends_cot, 1.0))
+        with span(f"rad.bwd.s{si}"):
+            p_cot, ext_cot = vjps[si]((sends_cot, 1.0))
         if timing_cb:
             _sync((p_cot, ext_cot))
             timing_cb(si, True, time.perf_counter() - t0)
@@ -422,18 +427,19 @@ def pipeline_loss_and_grad_ef(prog: PipelineProgram, params: Params,
             consumer_ops = [n for n in sd.node_names
                             if a in prog.graph.nodes[n].args]
             ratio = max([plan.ratio(a, c) for c in consumer_ops] or [1.0])
-            if ratio > 1.0:
-                corrected = g + ef_state[a].to(g.dtype)
-                k = ratio_to_k(g.numel(), ratio)
-                sent = _traced_compress(
-                    trace, f"enc ef({a})", f"stage{si}", True, ratio,
-                    lambda corrected=corrected, k=k: topk_mask(
-                        corrected, k, use_kernel=use_kernel),
-                    kernel_cb=kernel_cb, stage=si,
-                    dense_bytes=dense_payload_bytes(g))
-                new_ef[a] = corrected - sent
-                g = sent
-            grad_mail[a] = grad_mail[a] + g if a in grad_mail else g
+            with span("rad.wire"):
+                if ratio > 1.0:
+                    corrected = g + ef_state[a].to(g.dtype)
+                    k = ratio_to_k(g.numel(), ratio)
+                    sent = _traced_compress(
+                        trace, f"enc ef({a})", f"stage{si}", True, ratio,
+                        lambda corrected=corrected, k=k: topk_mask(
+                            corrected, k, use_kernel=use_kernel),
+                        kernel_cb=kernel_cb, stage=si,
+                        dense_bytes=dense_payload_bytes(g))
+                    new_ef[a] = corrected - sent
+                    g = sent
+                grad_mail[a] = grad_mail[a] + g if a in grad_mail else g
     return loss, grads, new_ef
 
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.opgraph import split_generator
 from repro_torch.distributed.sharding import constrain, is_dtensor, on_shards
+from repro_torch.obs.trace import span
 from .layers import apply_rope, dense, dense_init, init_device
 
 NEG_INF = -1e30
@@ -124,10 +125,11 @@ def attn_train(p, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
     core = functools.partial(
         _attend, head_dim=head_dim, causal=causal and x_kv is None,
         window=window, rope_fraction=rope_fraction, rope_theta=rope_theta)
-    if is_dtensor(q):
-        out = _attend_sharded(core, q, k, v, n_kv)
-    else:
-        out = core(q, k, v)
+    with span("attn"):
+        if is_dtensor(q):
+            out = _attend_sharded(core, q, k, v, n_kv)
+        else:
+            out = core(q, k, v)
     return dense({"w": p["wo"]["w"]}, out)
 
 

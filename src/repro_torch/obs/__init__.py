@@ -1,7 +1,9 @@
 """Observability for the port: span tracing, metrics, structured logging,
 the elastic controller's flight recorder, the telemetry bus, the watchdog
 and the trace export (Chrome/Perfetto JSON, JSONL) — stdlib only, no-ops
-when disabled.
+when disabled — and the profiler spans of the training path
+(:func:`repro_torch.obs.trace.span`, torch's ``record_function`` while a
+profiler records).
 
 Three analysis modules read what these record, and are imported
 explicitly, not re-exported (they pull in :mod:`repro_torch.check` and

@@ -29,12 +29,29 @@ Categories (the ``cat`` field — what the report CLI groups by)::
     serve.replay            serving: KV-prefix replay onto a replacement
                             replica after a mid-session re-route
 
+Profiler spans.  :func:`span` opens a ``torch.profiler.record_function``
+range while a ``torch.profiler`` is recording, and nothing otherwise: the
+range lands on the profiler's clock, beside the device kernels its body
+launches, so a device trace reads device time, launches and idle a span.
+:meth:`TraceRecorder.region` enters one around its body as well.  The
+training path's spans (their names are what trace readers match)::
+
+    rad.step        DecentralizedRuntime.train_step, the whole call
+    rad.fwd.s<i>    stage i's forward (leaf parameters and the stage call)
+    rad.bwd.s<i>    stage i's backward (its autograd closure)
+    rad.wire        one boundary edge's hand-off, either direction
+    attn            attention proper in attn_train (RoPE, mask, sdpa,
+                    heads merged; not the projections)
+    optim.update    one optimizer update, all leaves
+
 Guarantees the rest of the repo relies on:
 
 * **Disabled ⇒ no-op**: ``TraceRecorder(enabled=False)`` (or passing
   ``trace=None`` to any instrumented function) records nothing and adds no
   measurable work to the hot path — instrumented code must behave
-  identically with tracing on or off (pinned in tests).
+  identically with tracing on or off (pinned in tests).  With no profiler
+  recording, :func:`span` builds no ``record_function`` and costs one flag
+  read; no span, recorded or profiled, synchronises the device.
 * **Deterministic ordering**: every event gets a monotonically increasing
   sequence number; :meth:`events` returns a snapshot sorted by
   ``(clock, ts, seq)``, so two runs of the same simulation produce the same
@@ -49,6 +66,9 @@ import threading
 import time
 from collections import deque
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # ------------------------------------------------------------- categories --
 CAT_FWD = "stage.fwd"
@@ -118,6 +138,15 @@ class _NullRegion:
 
 
 _NULL_REGION = _NullRegion()
+
+
+def span(name: str):
+    """A profiler range ``name`` around a ``with`` body while a profiler is
+    recording; otherwise the shared no-op region, so that a span costs one
+    flag read and builds nothing.  It never synchronises."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NULL_REGION
 
 
 class TraceRecorder:
@@ -200,9 +229,10 @@ class TraceRecorder:
 
     def region(self, cat: str, name: str, track: str,
                args: Optional[Mapping[str, Any]] = None):
-        """Context manager recording a wall-clock span around its body."""
+        """Context manager recording a wall-clock span around its body,
+        inside a profiler :func:`span` of the same ``name``."""
         if not self.enabled:
-            return _NULL_REGION
+            return span(name)
         return _Region(self, cat, name, track, args)
 
     def complete_wall(self, cat: str, name: str, track: str, seconds: float,
@@ -255,7 +285,7 @@ class TraceRecorder:
 
 
 class _Region:
-    __slots__ = ("_rec", "_cat", "_name", "_track", "_args", "_t0")
+    __slots__ = ("_rec", "_cat", "_name", "_track", "_args", "_t0", "_span")
 
     def __init__(self, rec, cat, name, track, args):
         self._rec = rec
@@ -265,6 +295,8 @@ class _Region:
         self._args = args
 
     def __enter__(self):
+        self._span = span(self._name)
+        self._span.__enter__()
         self._t0 = self._rec.wall_now()
         return self
 
@@ -272,4 +304,5 @@ class _Region:
         self._rec._push(CLOCK_WALL, "X", self._cat, self._name, self._track,
                         self._t0, max(0.0, self._rec.wall_now() - self._t0),
                         self._args)
+        self._span.__exit__(*exc)
         return False

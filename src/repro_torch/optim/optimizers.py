@@ -24,6 +24,7 @@ its arguments by its in_shardings, whatever ``init`` chose.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, NamedTuple, Tuple
 
@@ -34,6 +35,7 @@ from repro_torch.core.rad import tree_map
 from repro_torch.distributed.params import generic_spec
 from repro_torch.distributed.sharding import (NamedSharding, is_dtensor,
                                               mesh_of, zeros)
+from repro_torch.obs.trace import span
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -49,6 +51,16 @@ class Optimizer:
     update: Callable[..., Tuple[Any, OptState]]
     # update(grads, state, params, consume_grads=False)
     #     -> (new_params, new_state)
+
+
+def _spanned(update):
+    """``update`` inside the profiler span ``optim.update``: one span a
+    whole update, all leaves."""
+    @functools.wraps(update)
+    def run(*args, **kwargs):
+        with span("optim.update"):
+            return update(*args, **kwargs)
+    return run
 
 
 def _f32(x) -> torch.Tensor:
@@ -166,7 +178,7 @@ def sgd(lr=1e-2, momentum: float = 0.9, nesterov: bool = False,
         new_p = tree_map(lambda p, g: (p - lr_t * g).to(p.dtype), params, eff)
         return new_p, OptState(step=state.step + 1, inner=inner)
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=_spanned(update))
 
 
 # ------------------------------------------------------------------ AdamW --
@@ -223,7 +235,7 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         pick = lambda i: tree_map(lambda o: o[i], out)  # noqa: E731
         return pick(0), OptState(step=t, inner={"m": pick(1), "v": pick(2)})
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=_spanned(update))
 
 
 # -------------------------------------------------------------- Adafactor --
@@ -291,4 +303,4 @@ def adafactor(lr=1e-3, decay: float = 0.8, eps: float = 1e-30,
         return (tree_map(lambda o: o[0], out),
                 OptState(step=t, inner=tree_map(lambda o: o[1], out)))
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=_spanned(update))
