@@ -16,7 +16,13 @@
 4. times each kernel with CUDA events, the profiler and the host clock
    (``*_host_us``: enqueue time a call) at the path's boundary shapes,
    beside its plain version, its memory bound and ``torch.topk``
-   (selection only);
+   (selection only); then AdamW's fused update (``kernels/adamw``, built
+   the same way) at the benchmark cells' leaf sets, held bit-exact against
+   its plain version over 3 steps, and timed beside its bound (28 bytes a
+   parameter), its plain version's 16 passes and ``torch._fused_adamw_``;
+   each fp32 training path below (fusion, gspmd, elastic, encdec, zoo,
+   pipeline) sets AdamW's counters to 0 with the codec's and must hand
+   every leaf to the kernel (no leaf on the written-out formula);
 5. drives the port's training path — gpt2-xl at full width and depth,
    batch 8, seq 128, paper testbed 1, ``DecentralizedRuntime(use_kernel=
    "auto")`` — for a few AdamW steps under the uniform (ratio 100) and the
@@ -261,6 +267,7 @@ BATCH, SEQ = 8, 128         # the launcher's defaults
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 SOURCE = "src/repro_torch/kernels/csrc/topk_codec.cu"
+ADAMW_SOURCE = "src/repro_torch/kernels/csrc/adamw.cu"
 EF_STEPS = 5                # carried residual steps on the entry points
 REPLACES = {"encode_topk": "src/repro/kernels/topk_compress.py:228",
             "ef_encode_topk": "src/repro/kernels/topk_compress.py:255",
@@ -540,6 +547,148 @@ def kernel_device_us(fn, patterns, reps: int = 20) -> dict:
     return found
 
 
+ADAMW_REPS = 10             # timed fused updates of a leaf set
+ADAMW_STEPS = 3             # warm-up steps held bit-exact
+
+
+def adamw_leaf_sets() -> dict:
+    """The leaf shapes of the benchmark's cells, in their programs' order:
+    gpt2-xl in the OP-DAG's layout (485 leaves: no linear biases, an
+    untied head), mistral-nemo-12b cut to 6 layers in it (57), and gpt2-xl
+    as the whole model with its blocks stacked (15)."""
+    def block(d, q, kv, ff, layernorm, gated, lead=()):
+        norm = [lead + (d,)] * (2 if layernorm else 1)
+        out = norm + [lead + (d, q), lead + (d, kv), lead + (d, kv),
+                      lead + (q, d)] + norm + [lead + (d, ff), lead + (ff, d)]
+        return out + [lead + (d, ff)] * gated
+
+    gpt2 = dict(d=1600, q=1600, kv=1600, ff=6400, layernorm=True,
+                gated=False)
+    nemo = dict(d=5120, q=4096, kv=1024, ff=14336, layernorm=False,
+                gated=True)
+    return {"gpt2xl.fusion": [(50432, 1600), (1024, 1600)]
+            + block(**gpt2) * 48 + [(1600,), (1600,), (1600, 50432)],
+            "nemo12b-l6.fusion": [(131072, 5120)] + block(**nemo) * 6
+            + [(5120,), (5120, 131072)],
+            "gpt2xl.gspmd": [(50432, 1600), (1600,), (1600,), (1600, 50432),
+                             (1024, 1600)] + block(**gpt2, lead=(48,))}
+
+
+def adamw_tensor(shape, leaf: int, what: int, dev):
+    """One leaf's tensor drawn from its own seed: 0 parameter, 1 first
+    moment, 2 second moment (non-negative), 3 + s the gradient of step s."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1000 * leaf + what)
+    x = torch.randn(shape, device=dev, generator=gen)
+    scale = (0.02, 1e-3, 1e-2, 1e-2)[min(what, 3)]
+    return x.square_().mul_(1e-4) if what == 2 else x.mul_(scale)
+
+
+def adamw_hyper(step: int, weight_decay: float):
+    import torch
+    from repro_torch.kernels import adamw as fa
+    from repro_torch.optim import linear_warmup_cosine
+    b1, b2 = 0.9, 0.95
+    t = torch.tensor(step + 1, dtype=torch.float32)
+    return fa.Hyper(lr=linear_warmup_cosine(1e-2, 2, ADAMW_STEPS)(
+        torch.tensor(step)), b1=b1, b2=b2, eps=1e-8,
+        weight_decay=weight_decay, bc1=1 - torch.tensor(b1) ** t,
+        bc2=1 - torch.tensor(b2) ** t)
+
+
+def adamw_exact(shapes, dev, weight_decay: float) -> int:
+    """ADAMW_STEPS fused updates of the whole leaf set in place, then each
+    leaf replayed alone through the plain version from its seeds and held
+    equal (``torch.equal``) to the kernel's parameter and moments.  Returns
+    the launches a step."""
+    import torch
+    from repro_torch.kernels import adamw as fa
+
+    state = [[adamw_tensor(s, i, w, dev) for w in range(3)]
+             for i, s in enumerate(shapes)]
+    fa.reset_counts()
+    for step in range(ADAMW_STEPS):
+        h = adamw_hyper(step, weight_decay)
+        leaves = [(p, adamw_tensor(s, i, 3 + step, dev), m, v)
+                  for i, (s, (p, m, v)) in enumerate(zip(shapes, state))]
+        state = [list(r) for r in fa.update(leaves, h, True)]
+        del leaves
+    torch.cuda.synchronize(dev)
+    if fa.update.fused_leaves != ADAMW_STEPS * len(shapes) \
+            or fa.update.written_leaves:
+        raise AssertionError(f"adamw: leaves off the kernel: "
+                             f"{fa.update.written_leaves}")
+    for i, s in enumerate(shapes):
+        p, m, v = (adamw_tensor(s, i, w, dev) for w in range(3))
+        for step in range(ADAMW_STEPS):
+            p, m, v = fa.plain(p, adamw_tensor(s, i, 3 + step, dev), m, v,
+                               adamw_hyper(step, weight_decay), True)
+        for name, a, b in zip("pmv", state[i], (p, m, v)):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"adamw: leaf {i} {tuple(s)} {name} differs from the "
+                    f"plain version (weight_decay={weight_decay}): "
+                    f"max |diff| "
+                    f"{float((a - b).abs().max())}")
+        del p, m, v
+    torch.cuda.synchronize(dev)
+    return fa.update.launches // ADAMW_STEPS
+
+
+def run_adamw_path(dev):
+    """AdamW's fused update (``kernels/adamw``) at the benchmark cells'
+    leaf sets: bit-exact against the plain version over ADAMW_STEPS steps,
+    then timed with CUDA events beside its bound (28 bytes a parameter at
+    3.35 TB/s), the plain version's 16 passes a leaf, and
+    ``torch._fused_adamw_`` (a yardstick: the port never calls it).
+    Returns each set's row."""
+    import torch
+    from repro_torch.kernels import adamw as fa
+
+    t0 = time.perf_counter()
+    lib = fa.load_library()
+    print(f"built and loaded {Path(lib._name).relative_to(ROOT)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name, shapes in adamw_leaf_sets().items():
+        n = sum(math.prod(s) for s in shapes)
+        row = {"leaves": len(shapes), "params": n,
+               "launches": adamw_exact(shapes, dev, 0.1)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        p, g, m, v = ([adamw_tensor(s, i, w, dev) for i, s in
+                       enumerate(shapes)] for w in (0, 3, 1, 2))
+        h = adamw_hyper(ADAMW_STEPS - 1, 0.0)
+        leaves = list(zip(p, g, m, v))
+        row["kernel_ms"] = time_ms(lambda: fa.update(leaves, h, True),
+                                   reps=ADAMW_REPS, warmup=2)
+        row["bound_ms"] = 1e3 * 28 * n / HBM_BYTES_PER_S
+        row["roofline_pct"] = 100 * row["bound_ms"] / row["kernel_ms"]
+        row["host_us"] = host_us(lambda: fa.update(leaves, h, True),
+                                 reps=ADAMW_REPS, warmup=1)
+        row.update(kernel_device_us(lambda: fa.update(leaves, h, True),
+                                    {"device_us": "adamw_kernel"},
+                                    reps=ADAMW_REPS))
+        row["plain_ms"] = time_ms(lambda: [fa.plain(*leaf, h, True)
+                                           for leaf in leaves],
+                                  reps=2, warmup=1)
+        steps = [torch.tensor(float(ADAMW_STEPS), device=dev)] * len(p)
+        try:
+            row["library_ms"] = time_ms(lambda: torch._fused_adamw_(
+                p, g, m, v, [], steps, lr=1e-3, beta1=0.9, beta2=0.95,
+                weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False),
+                reps=ADAMW_REPS, warmup=2)
+        except (AttributeError, RuntimeError, TypeError) as exc:
+            row["library_ms"] = f"not measured: {exc}"
+        out[name] = row
+        print("adamw " + name + ": " + json.dumps(row))
+        del p, g, m, v, leaves, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def compressed_messages(prog, plan) -> int:
     """Cross-stage messages with ratio > 1 in one direction of one
     micro-batch — what RAD compresses (rad.pipeline_forward)."""
@@ -613,6 +762,34 @@ def launch_counts() -> dict:
     return {n: f.launches for n, f in tk.KERNELS.items()}
 
 
+#: AdamW's kernel's counts in each fp32 training path, summed over the
+#: path's own runs (:func:`adamw_counts`)
+ADAMW_BY_PATH: dict = {}
+
+
+def reset_counts() -> None:
+    """The codec's and AdamW's counters to 0: a path's own run starts."""
+    from repro_torch.kernels import adamw as fa, topk_compress as tk
+    tk.reset_launch_counts()
+    fa.reset_counts()
+
+
+def adamw_counts(path: str) -> dict:
+    """AdamW's counts since :func:`reset_counts`, added to ``path``'s in
+    ADAMW_BY_PATH.  An fp32 training path on the card hands every leaf to
+    the kernel: it launched, and no leaf took the written-out formula."""
+    from repro_torch.kernels import adamw as fa
+    got = {k: getattr(fa.update, k) for k in (
+        "launches", "fused_leaves", "fused_params", "written_leaves")}
+    if not got["launches"] or not got["fused_leaves"] \
+            or got["written_leaves"]:
+        raise AssertionError(f"{path}: AdamW's leaves off its kernel: {got}")
+    kept = ADAMW_BY_PATH.setdefault(path, dict.fromkeys(got, 0))
+    for k, c in got.items():
+        kept[k] += c
+    return got
+
+
 def run_training_path(dev):
     """gpt2-xl full under the uniform and AdaTopK plans, and under the
     uniform plan with error feedback; launch counts per run."""
@@ -628,7 +805,7 @@ def run_training_path(dev):
     for compress, ef in (("uniform", False), ("adatopk", False),
                          ("uniform", True)):
         label = f"{compress}+ef" if ef else compress
-        tk.reset_launch_counts()        # this path's counts start here
+        reset_counts()                  # this path's counts start here
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         run = train_fusion(cfg, batch=BATCH, seq=SEQ, steps=STEPS, lr=3e-4,
@@ -637,6 +814,7 @@ def run_training_path(dev):
                            error_feedback=ef, log=log, log_every=1)
         wall = time.perf_counter() - t0
         got = launch_counts()
+        adamw_got = adamw_counts(f"train {label}")
         msgs = compressed_messages(run.runtime.prog, run.plan)
         # one encode->decode per compressed message in each direction, 1
         # micro-batch: the forward activation through boundary_compress,
@@ -661,7 +839,7 @@ def run_training_path(dev):
             "ratios": sorted(set(run.plan.edge_ratio.values())),
             "losses": run.losses, "step_s": run.step_seconds,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-            "launches": got, "wall_s": wall,
+            "launches": got, "adamw": adamw_got, "wall_s": wall,
             "sim_iteration_s": run.sim.iteration_time}
         if ef:
             held = nonzero_residuals(run.runtime.ef_state)
@@ -726,7 +904,6 @@ def run_gspmd_path(dev):
     from repro_torch.configs import resolve
     from repro_torch.core.opgraph import tree_leaves
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import topk_compress as tk
     from repro_torch.launch.train import train_gspmd
     from repro_torch.obs import slog
     from repro_torch.optim import adafactor, adamw, linear_warmup_cosine
@@ -739,13 +916,14 @@ def run_gspmd_path(dev):
                 weight_decay=0.0)
     torch.cuda.reset_peak_memory_stats(dev)
     allocated = torch.cuda.memory_allocated(dev)
-    tk.reset_launch_counts()            # this path's counts start here
+    reset_counts()                      # this path's counts start here
     t0 = time.perf_counter()
     run = train_gspmd(cfg, batch=BATCH, seq=SEQ, steps=GSPMD_STEPS, lr=3e-4,
                       device=dev, optimizer=opt, data_order=1, log=log,
                       log_every=1)
     wall = time.perf_counter() - t0
     got = launch_counts()
+    adamw_got = adamw_counts("train gspmd")
     peak = torch.cuda.max_memory_allocated(dev)
     if not all(math.isfinite(x) for x in run.losses):
         raise AssertionError(f"gspmd: non-finite loss {run.losses}")
@@ -770,7 +948,8 @@ def run_gspmd_path(dev):
         "steady_step_s": steady,
         "tokens_per_s": BATCH * SEQ * len(steady) / sum(steady),
         "allocated_before_gb": allocated / 1e9, "peak_mem_gb": peak / 1e9,
-        "wall_s": wall, "launches": got, "timed_step": phases}
+        "wall_s": wall, "launches": got, "adamw": adamw_got,
+        "timed_step": phases}
     print("gspmd path: " + json.dumps(report))
     del run, batch
     gc.collect()
@@ -1119,13 +1298,14 @@ def run_elastic_path(dev):
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     allocated = torch.cuda.memory_allocated(dev)
-    tk.reset_launch_counts()            # this path's counts start here
+    reset_counts()                      # this path's counts start here
     t0 = time.perf_counter()
     with meter:
         res = ctrl.run(steps=ELASTIC_STEPS,
                        data_fn=micro_batches(ds, BATCH), params=params.pop())
     wall = time.perf_counter() - t0
     got = launch_counts()
+    adamw_got = adamw_counts("train elastic")
 
     meter.check_calls(res, interval=3)
     losses = [r.loss for r in res.steps]
@@ -1183,7 +1363,8 @@ def run_elastic_path(dev):
         "serialize": meter.serialize, "deserialize": meter.deserialize,
         "allocated_at_start_gb": allocated / 1e9,
         "peak_mem_gb": meter.peak / 1e9, "wall_s": wall,
-        "sim_total_s": res.total_seconds, "launches": got}
+        "sim_total_s": res.total_seconds, "launches": got,
+        "adamw": adamw_got}
     print("elastic path: " + json.dumps(report))
     traced = {"recorder": kit["tracer"], "events": kit["tracer"].events(),
               "flight": [r.to_dict() for r in kit["flight"].records()],
@@ -2624,9 +2805,10 @@ def run_encdec_path(dev):
     gc.collect()
     torch.cuda.empty_cache()
 
-    tk.reset_launch_counts()            # the training run's counts start here
+    reset_counts()                      # the training run's counts start here
     training = train_encdec(cfg, params, dev)
     got = {n: c + got[n] for n, c in launch_counts().items()}
+    training["adamw"] = adamw_counts("encdec")
     if any(got.values()):
         raise AssertionError(f"encdec: the codec ran on the serving or "
                              f"training path: {got}")
@@ -3050,6 +3232,7 @@ def zoo_train(cfg, dev) -> dict:
         first_ref = float(causal_lm.train_loss(cfg, held[0], batches[0])[0])
     opt = adamw(linear_warmup_cosine(3e-4, 10, ZOO_TRAIN_STEPS),
                 weight_decay=0.0)
+    reset_counts()                      # this run's counts start here
     if cfg.n_prefix:
         params = held.pop()
         state = opt.init(params)
@@ -3073,6 +3256,7 @@ def zoo_train(cfg, dev) -> dict:
         losses, step_s = run.losses, run.step_seconds
         route = "launch.train.train_gspmd"
         del run
+    adamw_got = adamw_counts("zoo")
     peak = torch.cuda.max_memory_allocated(dev)
     del batches
     gc.collect()
@@ -3088,9 +3272,9 @@ def zoo_train(cfg, dev) -> dict:
     return {"cfg": cfg.name, "layers": cfg.n_layers, "params": n_params,
             "route": route, "batch": B, "seq": SEQ,
             "prefix": cfg.n_prefix, "optimizer": "adamw(3e-4, warm-up 10)",
-            "losses": losses, "train_loss_step1": first_ref,
-            "step1_rel_gap": rel, "step_s": step_s,
-            "steady_step_s": sum(steady) / len(steady),
+            "adamw": adamw_got, "losses": losses,
+            "train_loss_step1": first_ref, "step1_rel_gap": rel,
+            "step_s": step_s, "steady_step_s": sum(steady) / len(steady),
             "tokens_per_s": B * SEQ * len(steady) / sum(steady),
             "flops": flops, "flop_bound_ms": 1e3 * flops / FP32_OPS_PER_S,
             "peak_mem_gb": peak / 1e9}
@@ -3115,7 +3299,7 @@ def zoo_fusion(dev) -> tuple:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        tk.reset_launch_counts()        # this run's counts start here
+        reset_counts()                  # this run's counts start here
         t0 = time.perf_counter()
         run = train_fusion(cfg, batch=BATCH, seq=SEQ, steps=ZOO_FUSION_STEPS,
                            lr=3e-4, compress=compress, ratio=100.0,
@@ -3123,6 +3307,7 @@ def zoo_fusion(dev) -> tuple:
                            data_order=1, log_every=ZOO_FUSION_STEPS)
         wall = time.perf_counter() - t0
         got = launch_counts()
+        adamw_got = adamw_counts("zoo")
         msgs = compressed_messages(run.runtime.prog, run.plan)
         expect = {n: msgs * 2 * ZOO_FUSION_STEPS
                   if n in ("encode_topk", "decode_topk") else 0
@@ -3142,7 +3327,7 @@ def zoo_fusion(dev) -> tuple:
             "ratios": sorted(set(run.plan.edge_ratio.values())),
             "losses": run.losses, "step_s": run.step_seconds,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-            "launches": got, "wall_s": wall,
+            "launches": got, "adamw": adamw_got, "wall_s": wall,
             "sim_iteration_s": run.sim.iteration_time}
         total = {n: total[n] + got[n] for n in tk.KERNELS}
         del run
@@ -3380,7 +3565,7 @@ def run_pipeline_path(dev):
         return {n: now[n] - before[n] for n in now}
 
     batch = batch_at(0)
-    tk.reset_launch_counts()            # this path's counts start here
+    reset_counts()                      # this path's counts start here
     flat = make_mesh((8,), ("model",), [dev] * 8)
     fn = pipe.make_pipeline_train_fn(cfg, flat, PIPE_MICRO)
     mb = pipe.microbatch(batch, PIPE_MICRO)
@@ -3466,6 +3651,7 @@ def run_pipeline_path(dev):
         params, state, _ = gspmd(params, state, b)
         torch.cuda.synchronize(dev)
         gspmd_s.append(time.perf_counter() - t0)
+    adamw_got = adamw_counts("train pipeline")
 
     steady = step_s[1:]
     flops = model_flops(cfg, InputShape("pipeline", SEQ, BATCH, "train"))
@@ -3492,7 +3678,7 @@ def run_pipeline_path(dev):
         "bound_by": bound.dominant,
         "gspmd_step_s": gspmd_s,
         "gspmd_steady_step_s": sum(gspmd_s[1:]) / len(gspmd_s[1:]),
-        "launches": got}
+        "launches": got, "adamw": adamw_got}
     print("pipeline path: " + json.dumps(report))
     del params, state, gspmd
     gc.collect()
@@ -5563,6 +5749,7 @@ def main() -> int:
 
     err = phase("check kernels", check_kernels, dev)
     timing = phase("measure kernels", measure_kernels, dev)
+    adamw_timing = phase("adamw", run_adamw_path, dev)
     training = phase("train fusion", run_training_path, dev)
     paths = {f"train {label}": r["launches"]
              for label, r in training.items()}
@@ -5587,6 +5774,8 @@ def main() -> int:
     paths["spmd xlstm"] = phase("spmd xlstm", run_spmd_xlstm_path, dev)
     paths["spmd encdec"] = phase("spmd encdec", run_spmd_encdec_path, dev)
     launches = {n: sum(p[n] for p in paths.values()) for n in tk.KERNELS}
+    launches["adamw_kernel"] = sum(c["launches"]
+                                   for c in ADAMW_BY_PATH.values())
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on its path: "
                              f"{launches}")
@@ -5630,6 +5819,23 @@ def main() -> int:
                           "computes": "selection only",
                           "ms": main_shape["topk_selection_only_ms"]},
             "shape": main_shape["shape"]})
+    adamw_row = adamw_timing["gpt2xl.fusion"]
+    kernels.append({
+        "name": "adamw_kernel", "route": "cuda", "source": ADAMW_SOURCE,
+        "replaces": None, "launches": launches["adamw_kernel"],
+        "launches_by_path": {p: c["launches"]
+                             for p, c in ADAMW_BY_PATH.items()},
+        "fused_leaves_by_path": {p: c["fused_leaves"]
+                                 for p, c in ADAMW_BY_PATH.items()},
+        "max_abs_err": 0.0, "ms": adamw_row["kernel_ms"],
+        "device_us": adamw_row.get("device_us"),
+        "host_us": adamw_row["host_us"], "plain_ms": adamw_row["plain_ms"],
+        "bound_ms": adamw_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "yardstick": {"call": "torch._fused_adamw_",
+                      "computes": "AdamW's update, not bit-exact",
+                      "ms": adamw_row["library_ms"]},
+        "shape": "gpt2xl.fusion leaf set", "leaf_sets": adamw_timing})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -189,11 +189,13 @@ def make_train_step(cfg: ModelCfg, optimizer: Optimizer,
                     grad_clip: float = 1.0) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm", "ce", "aux"})``.  The step owns the gradients
-    it makes: it clips them where they are and lets the optimizer compute
-    in their memory (``Optimizer.update(..., consume_grads=True)``), so it
-    holds two parameter-sized trees, as the JAX package's jitted step with
-    its donated buffers does, not three; the numbers are the functional
-    formula's."""
+    it makes and gives up the optimizer state it is passed, as the JAX
+    package's jitted step donates ``params`` and ``opt_state``: it clips
+    the gradients where they are and lets the optimizer compute in their
+    memory (``Optimizer.update(..., consume_grads=True)``; AdamW writes its
+    new moments over the old ones), so it holds two parameter-sized trees
+    beside the optimizer's state, not three; the numbers are the
+    functional formula's."""
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = loss_and_grad(cfg, params, batch)
@@ -278,12 +280,14 @@ def build_jitted(cfg: ModelCfg, mesh: Mesh, shape: InputShape,
     cache a prefill returns).
 
     ``fn`` is the eager step.  Nothing is jitted: PyTorch runs the step as
-    written, with no trace to compile against the shardings.  No input is
-    donated: the step returns new tensors and writes none of its inputs.
+    written, with no trace to compile against the shardings.  The prefill
+    and decode steps return new tensors and write none of their inputs.
     The train step writes its new parameters into the memory of the
-    gradients it made (:func:`make_train_step`), so it holds two
-    parameter-sized trees, as JAX's with its donated buffers does, not
-    three.  ``remat`` changes nothing, as in
+    gradients it made and, on plain tensors, AdamW's new moments over
+    those of the state it was passed (:func:`make_train_step`), as JAX's
+    donates ``params`` and ``opt_state``, so it holds two parameter-sized
+    trees beside the optimizer's state, not three.  ``remat`` changes
+    nothing, as in
     JAX (the model checkpoints its blocks by ``cfg.remat``).
 
     On a process mesh (``launch.mesh.make_process_mesh``) every step takes

@@ -54,22 +54,22 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the topk codec kernels")
+                       "the port's kernels")
 
 
-def build_library() -> Path:
-    """Compile ``csrc/topk_codec.cu`` unless a library built from the same
-    source bytes is already in ``build/``.  Returns the library's path; the
-    compiler's resource report (``-Xptxas -v``) goes to the ``.log`` beside
-    it."""
-    src = _SOURCE.read_bytes()
+def build_library(source: Path = _SOURCE) -> Path:
+    """Compile ``source`` (by default ``csrc/topk_codec.cu``) unless a
+    library built from the same source bytes is already in ``build/``.
+    Returns the library's path; the compiler's resource report (``-Xptxas
+    -v``) goes to the ``.log`` beside it."""
+    src = source.read_bytes()
     digest = hashlib.sha1(src).hexdigest()[:12]
-    out = build_dir() / f"libtopk_codec-{digest}.so"
+    out = build_dir() / f"lib{source.stem}-{digest}.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"

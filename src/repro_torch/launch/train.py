@@ -102,7 +102,8 @@ def train_fusion(cfg, *, batch: int = 8, seq: int = 128, steps: int = 50,
         b = ds.batch(batch, i)
         t0 = time.perf_counter()
         loss, grads = runtime.train_step(params, [b])
-        # the step owns its gradients: the update computes in their memory
+        # the step owns its gradients and state: the update computes in
+        # their memory
         params, state = opt.update(distinct_storage(grads), state, params,
                                    consume_grads=True)
         del grads

@@ -6,9 +6,14 @@ same code drives the FusionLLM decentralized runtime (per-CompNode
 sub-trees — the paper's per-OP "Update" stage, §3.3) and unit tests.  The
 update is written out (no ``torch.optim``) so it is the JAX package's
 formula: ``update`` returns new tensors and leaves its inputs as they were,
-unless the caller lets it consume the gradients (``consume_grads``: a
-train step that owns them, as the JAX package's jitted step, which donates
-its buffers, holds no third parameter-sized tree).
+unless the caller gives them up (``consume_grads``: a train step that owns
+its gradients and its optimizer state, as the JAX package's jitted step
+donates ``params`` and ``opt_state``, ``repro/distributed/steps.py``,
+``donate_argnums=(0, 1)``).  Then the update computes in the gradients'
+memory, and AdamW writes its new moments over those of the state it was
+given, so it allocates no parameter-sized tree.  The parameters given are
+never written.  AdamW's update of fp32 leaves on the card is one fused
+CUDA pass over many leaves a launch (:mod:`repro_torch.kernels.adamw`).
 
 Schedules map the step (a 0-dim int tensor) to a 0-dim float32 tensor on
 the CPU, which scales tensors on any device.
@@ -35,6 +40,7 @@ from repro_torch.core.rad import tree_map
 from repro_torch.distributed.params import generic_spec
 from repro_torch.distributed.sharding import (NamedSharding, is_dtensor,
                                               mesh_of, zeros)
+from repro_torch.kernels import adamw as fused_adamw
 from repro_torch.obs.trace import span
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -192,46 +198,34 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                                "v": tree_map(_moment, params)})
 
     def update(grads, state, params, consume_grads=False):
-        """The step computes in new memory, or with ``consume_grads``
-        (gradients of distinct memory that the caller does not read again)
-        in each fp32 gradient of an fp32 parameter, whose memory then holds
-        the new parameter: the update then holds 24 bytes a parameter (the
-        parameters, the moments and their new values, the gradients), not
-        28.  In place or not, the arithmetic is the same, op for op.  On
-        DTensors it computes in new memory: the card's torch has refused
-        sharded ops that a CPU build accepts, and no path there runs
-        AdamW's update on DTensors with its gradients given up."""
+        """The step computes in new memory and leaves its inputs as they
+        were, or with ``consume_grads`` gives up the gradients (of distinct
+        memory, not read again) and the moments of ``state``: each fp32
+        leaf's new parameter is written into its gradient's memory and its
+        new moments over the old ones, so the update allocates nothing
+        parameter-sized and holds four trees (parameters, gradients, two
+        moments), not six.  That is the JAX package's contract: its jitted
+        train step donates ``params`` and ``opt_state``
+        (``repro/distributed/steps.py``, ``donate_argnums=(0, 1)``).  The
+        parameters given are never written.
+
+        Leaves are routed by what they are
+        (:func:`repro_torch.kernels.adamw.update`): fp32 leaves on the card
+        go through one fused CUDA pass over many leaves a launch, on the
+        CPU through its plain version; DTensors and other dtypes through
+        the written-out formula in new memory (the card's torch has refused
+        sharded ops that a CPU build accepts).  Every route gives the same
+        numbers, op for op."""
         t = state.step + 1
-        lr_t = sched(state.step)
-        bc1 = 1 - _f32(b1) ** _f32(t)
-        bc2 = 1 - _f32(b2) ** _f32(t)
-
-        def leaf(p, g, m_, v_):
-            if consume_grads and g.dtype == p.dtype == torch.float32 \
-                    and not is_dtensor(g):
-                return leaf_in_grad(p, g, m_, v_)
-            g32 = g.to(torch.float32)
-            m = b1 * m_ + (1 - b1) * g32
-            v = b2 * v_ + (1 - b2) * torch.square(g32)
-            upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            new_p = (p - lr_t * (upd + weight_decay * p.to(torch.float32))
-                     ).to(p.dtype)
-            return new_p, m, v
-
-        def leaf_in_grad(p, g, m_, v_):
-            # leaf's ops in its order, the gradient's memory reused once
-            # the moments have read it: at most two leaf-sized temporaries
-            m = torch.mul(m_, b1)
-            m.add_(torch.mul(g, 1 - b1))
-            v = torch.mul(v_, b2)
-            v.add_(torch.square(g, out=g).mul_(1 - b2))
-            upd = torch.div(m, bc1)
-            upd.div_(torch.div(v, bc2, out=g).sqrt_().add_(eps))
-            upd.add_(torch.mul(p, weight_decay)).mul_(lr_t)
-            return torch.sub(p, upd, out=g), m, v
-
-        out = tree_map(leaf, params, grads, state.inner["m"],
-                       state.inner["v"])
+        h = fused_adamw.Hyper(
+            lr=sched(state.step), b1=b1, b2=b2, eps=eps,
+            weight_decay=weight_decay, bc1=1 - _f32(b1) ** _f32(t),
+            bc2=1 - _f32(b2) ** _f32(t))
+        leaves = []
+        tree_map(lambda *leaf: leaves.append(leaf), params, grads,
+                 state.inner["m"], state.inner["v"])
+        done = iter(fused_adamw.update(leaves, h, in_place=consume_grads))
+        out = tree_map(lambda _: next(done), params)
         pick = lambda i: tree_map(lambda o: o[i], out)  # noqa: E731
         return pick(0), OptState(step=t, inner={"m": pick(1), "v": pick(2)})
 

@@ -370,8 +370,10 @@ def test_module_trees_equal():
                         if "__pycache__" not in p.parts}
     missing = sorted(rel(ref) - rel(port))
     assert missing == []
-    # the package marker, the device resolver, the weight converter and
-    # the launcher of ranks (JAX's one process drives every device)
+    # the package marker, the device resolver, the weight converter, the
+    # launcher of ranks (JAX's one process drives every device) and AdamW's
+    # fused kernel (JAX leaves the update's fusion to XLA)
     assert sorted(rel(port) - rel(ref)) == ["__init__.py",
                                             "checkpoint/convert.py",
-                                            "device.py", "launch/spmd.py"]
+                                            "device.py", "kernels/adamw.py",
+                                            "launch/spmd.py"]

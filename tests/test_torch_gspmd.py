@@ -184,10 +184,12 @@ def test_adafactor_consuming_its_gradients_gives_the_same_numbers():
 @pytest.mark.parametrize("weight_decay", [0.0, 0.1])
 def test_adamw_consuming_its_gradients_gives_the_same_numbers(weight_decay):
     """AdamW's ``update(..., consume_grads=True)`` writes each fp32 leaf's
-    new value into its gradient's memory and gives the functional update's
-    parameters and moments bit for bit over three steps (a warm-up
-    schedule, so the learning rate and both bias corrections move), and
-    leaves the parameters and the state it was given as they were."""
+    new value into its gradient's memory and its new moments over those of
+    the state it was given (the JAX package's step donates ``params`` and
+    ``opt_state``), gives the functional update's parameters and moments
+    bit for bit over three steps (a warm-up schedule, so the learning rate
+    and both bias corrections move), and leaves the parameters it was given
+    as they were."""
     opt = t_optim.adamw(t_optim.linear_warmup_cosine(1e-2, 2, 3),
                         weight_decay=weight_decay)
     params, _ = _stacked_tree(0)
@@ -198,15 +200,16 @@ def test_adamw_consuming_its_gradients_gives_the_same_numbers(weight_decay):
         want_p, want_st = opt.update(from_numpy_tree(grads, CPU), want_st,
                                      want_p)
         gt = from_numpy_tree(grads, CPU)
-        before = [t.clone() for t in jax.tree_util.tree_leaves(
-            (got_p, got_st.inner))]
+        before = [t.clone() for t in jax.tree_util.tree_leaves(got_p)]
         ptrs = [t.data_ptr() for t in jax.tree_util.tree_leaves(gt)]
+        moments = jax.tree_util.tree_leaves(got_st.inner)
         new_p, new_st = opt.update(gt, got_st, got_p, consume_grads=True)
-        for a, b in zip(jax.tree_util.tree_leaves((got_p, got_st.inner)),
-                        before):
+        for a, b in zip(jax.tree_util.tree_leaves(got_p), before):
             assert torch.equal(a, b)
         assert [t.data_ptr() for t in jax.tree_util.tree_leaves(new_p)] \
             == ptrs
+        assert [t.data_ptr() for t in jax.tree_util.tree_leaves(
+            new_st.inner)] == [t.data_ptr() for t in moments]
         got_p, got_st = new_p, new_st
         for a, b in zip(jax.tree_util.tree_leaves((got_p, got_st.inner)),
                         jax.tree_util.tree_leaves((want_p, want_st.inner))):
