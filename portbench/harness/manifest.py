@@ -4,11 +4,14 @@
 a configuration (``configs`` gives its file) and a traffic mix
 (``portbench/traffic/<traffic>.json``).  A cell's limits for the check of
 its output are ``portbench/limits/<cell>.json``; a per-layer metric is the
-module ``portbench/metrics/<metric>.py``.  Adding a cell, a mix or a
-metric adds files; nothing here changes.
+module ``portbench/metrics/<metric>.py``; the blocks of a configuration
+whose ``family`` is ``f`` are the module ``portbench/families/<f>.py``.
+Adding a cell, a mix, a metric or a block family adds files; nothing here
+changes.
 """
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from pathlib import Path
@@ -49,14 +52,31 @@ def cell(name: str, root: Path = ROOT) -> Dict[str, object]:
             "per_layer": [e for e in m["per_layer"] if here(e)]}
 
 
-def metric_module(name: str, root: Path = ROOT):
-    """The reader of per-layer metric ``name``."""
-    path = root / "portbench" / "metrics" / f"{name}.py"
+def _module(folder: str, name: str, root: Path):
+    path = root / "portbench" / folder / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
-        f"portbench.metrics.{name.replace('.', '_')}", path)
+        f"portbench.{folder}.{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def metric_module(name: str, root: Path = ROOT):
+    """The reader of per-layer metric ``name``."""
+    return _module("metrics", name, root)
+
+
+@functools.lru_cache(maxsize=None)
+def family_module(name: str, root: Path = ROOT):
+    """The block family ``name``: ``block_specs``, ``block``,
+    ``block_flops`` and ``small`` of its layers; read once a process."""
+    return _module("families", name, root)
+
+
+def family(cfg: dict, root: Path = ROOT):
+    """The block family of configuration ``cfg``, named by its ``family``
+    key."""
+    return family_module(cfg["family"], root)
 
 
 def metric_names(root: Path = ROOT) -> List[str]:

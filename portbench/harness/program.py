@@ -10,12 +10,14 @@ launcher builds them, driven one step a call.
   whole model (autograd, global-norm clip, AdamW).
 
 ``fault`` plants a fault in the timed path for the tests of the check
-(never in a benchmark run): ``frozen`` returns the state unchanged,
+(never in a benchmark run): ``frozen`` leaves the state unchanged,
 ``half_batch`` trains on the first half of the rows, ``dense_wire`` sends
 every boundary uncompressed.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import time
 from typing import Optional
 
@@ -24,18 +26,48 @@ import torch
 FAULTS = ("frozen", "half_batch", "dense_wire")
 
 
+# Keys of a configuration file that reach no ``ModelCfg``: those that
+# document it, and those only the reference reads.
+DOCUMENTS = ("source", "paper", "published", "reduced", "assumed",
+             "deployment")
+REFERENCE_ONLY = ("norm_eps",)
+DTYPES = {"float32": torch.float32}
+
+
+def port_families() -> set:
+    """The block families of the port's registered configurations: those
+    its models build."""
+    from repro_torch import configs
+    configs.load_all()
+    return {entry.full.family for entry in configs.REGISTRY.values()}
+
+
 def model_cfg(cfg: dict, seq: int):
-    """The port's ``ModelCfg`` for a configuration file's entries."""
+    """The port's ``ModelCfg`` for a configuration file's entries: every
+    key that names one of its fields is passed to it, ``linear_bias`` as
+    ``qkv_bias``, ``max_seq`` at least ``seq``; any other key, or a
+    ``family`` the port builds none of, raises."""
     from repro_torch.configs.base import ModelCfg
-    return ModelCfg(
-        name=cfg["name"], family="dense", n_layers=cfg["n_layers"],
-        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
-        n_kv_heads=cfg["n_kv_heads"], head_dim=cfg["head_dim"],
-        d_ff=cfg["d_ff"], vocab=cfg["vocab"],
-        vocab_pad_to=cfg["vocab_pad_to"], norm=cfg["norm"], act=cfg["act"],
-        rope_fraction=cfg["rope_fraction"], rope_theta=cfg["rope_theta"],
-        max_seq=max(cfg["max_seq"], seq), window=None,
-        tie_embeddings=cfg["tie_embeddings"], qkv_bias=cfg["linear_bias"])
+    if cfg["family"] not in port_families():
+        raise ValueError(f"family {cfg['family']!r} of {cfg['name']!r} is "
+                         f"none of the port's: {sorted(port_families())}")
+    fields = {f.name for f in dataclasses.fields(ModelCfg)}
+    kw = {}
+    for key, value in cfg.items():
+        if key in DOCUMENTS or key in REFERENCE_ONLY:
+            continue
+        if key == "linear_bias":
+            kw["qkv_bias"] = value
+        elif key == "max_seq":
+            kw["max_seq"] = max(value, seq)
+        elif key == "dtype":
+            kw["dtype"] = DTYPES[value]
+        elif key in fields:
+            kw[key] = value
+        else:
+            raise KeyError(f"configuration key {key!r} of {cfg['name']!r} "
+                           "is no field of the port's ModelCfg")
+    return ModelCfg(**kw)
 
 
 def _optimizer(traffic: dict):
@@ -149,10 +181,13 @@ class GspmdProgram(_Program):
 
     def step(self, tokens, labels, traced: bool = False) -> torch.Tensor:
         tokens, labels = self._rows(tokens, labels)
-        params, state, m = self.step_fn(self.params, self.state,
-                                        {"tokens": tokens, "labels": labels})
-        if self.fault != "frozen":
-            self.params, self.state = params, state
+        batch = {"tokens": tokens, "labels": labels}
+        if self.fault == "frozen":
+            # the step writes AdamW's moments over the state it is given
+            params, state = copy.deepcopy((self.params, self.state))
+            return self.step_fn(params, state, batch)[2]["loss"]
+        self.params, self.state, m = self.step_fn(self.params, self.state,
+                                                  batch)
         return m["loss"]
 
     def first_moment(self):

@@ -3,10 +3,11 @@ parameters take, for the program and the reference alike.
 
 Two layouts: ``fusion`` (the OP-DAG's, one entry a node: ``embed``,
 ``block_i``, ``head``) and ``gspmd`` (the whole model's, the blocks
-stacked on a leading axis).  Every matrix and table is drawn in one
-``torch.randn`` call over all of them, from a generator on the device
-seeded with the seed, and scaled in place as the program's own
-initialisation scales it: tables and the head by 0.02, a projection by
+stacked on a leading axis, so every layer alike).  A block's leaves are
+its family's (``portbench/families/<family>.py``).  Every matrix and
+table is drawn in one ``torch.randn`` call over all of them, from a
+generator on the device seeded with the seed, and scaled in place as the
+program's own initialisation scales it: tables and the head by 0.02, a projection by
 ``1 / sqrt(fan_in)``.  Norm scales are ones and norm biases zeros.
 """
 from __future__ import annotations
@@ -16,36 +17,23 @@ from typing import List, Tuple
 
 import torch
 
+from portbench.harness import manifest
+
 Spec = Tuple[Tuple[str, ...], Tuple[int, ...], str, float]
 
 
-def _norm(prefix, d, cfg) -> List[Spec]:
+def norm_specs(prefix, d, cfg) -> List[Spec]:
     out = [(prefix + ("scale",), (d,), "ones", 0.0)]
     if cfg["norm"] == "layernorm":
         out.append((prefix + ("bias",), (d,), "zeros", 0.0))
     return out
 
 
-def _block(prefix, cfg, lead=()) -> List[Spec]:
-    d, dff = cfg["d_model"], cfg["d_ff"]
-    q, kv = cfg["n_heads"] * cfg["head_dim"], cfg["n_kv_heads"] * cfg["head_dim"]
-    out = [(s[0], lead + s[1], s[2], s[3]) for s in _norm(prefix + ("ln1",), d, cfg)]
-    out += [(prefix + ("attn", "wq", "w"), lead + (d, q), "normal", 1 / math.sqrt(d)),
-            (prefix + ("attn", "wk", "w"), lead + (d, kv), "normal", 1 / math.sqrt(d)),
-            (prefix + ("attn", "wv", "w"), lead + (d, kv), "normal", 1 / math.sqrt(d)),
-            (prefix + ("attn", "wo", "w"), lead + (q, d), "normal", 1 / math.sqrt(q))]
-    out += [(s[0], lead + s[1], s[2], s[3]) for s in _norm(prefix + ("ln2",), d, cfg)]
-    out += [(prefix + ("mlp", "up", "w"), lead + (d, dff), "normal", 1 / math.sqrt(d)),
-            (prefix + ("mlp", "down", "w"), lead + (dff, d), "normal", 1 / math.sqrt(dff))]
-    if cfg["act"] == "silu":
-        out.append((prefix + ("mlp", "gate", "w"), lead + (d, dff), "normal",
-                    1 / math.sqrt(d)))
-    return out
-
-
 def specs(cfg: dict, layout: str, seq: int) -> List[Spec]:
-    """(path, shape, kind, scale) of every leaf, in the program's order."""
-    d = cfg["d_model"]
+    """(path, shape, kind, scale) of every leaf, in the program's order;
+    the blocks' leaves are their family's ``block_specs``."""
+    fam = manifest.family(cfg)
+    d, L = cfg["d_model"], cfg["n_layers"]
     p = max(cfg["vocab_pad_to"], 1)
     V = (cfg["vocab"] + p - 1) // p * p
     learned = cfg["rope_fraction"] == 0.0
@@ -54,19 +42,27 @@ def specs(cfg: dict, layout: str, seq: int) -> List[Spec]:
         out = [(("embed", "tok", "table"), (V, d), "normal", 0.02)]
         if learned:
             out.append((("embed", "pos", "table"), (max_seq, d), "normal", 0.02))
-        for i in range(cfg["n_layers"]):
-            out += _block((f"block_{i}",), cfg)
-        out += _norm(("head", "ln"), d, cfg)
+        for i in range(L):
+            out += [((f"block_{i}",) + path, shape, kind, scale)
+                    for path, shape, kind, scale in fam.block_specs(cfg, i)]
+        out += norm_specs(("head", "ln"), d, cfg)
         out.append((("head", "w", "w"), (d, V), "normal", 0.02))
         return out
     if layout != "gspmd":
         raise ValueError(f"unknown layout {layout!r}")
     out = [(("embed", "table"), (V, d), "normal", 0.02)]
-    out += _norm(("final_norm",), d, cfg)
+    out += norm_specs(("final_norm",), d, cfg)
     out.append((("head", "w"), (d, V), "normal", 0.02))
     if learned:
         out.append((("pos_embed", "table"), (max_seq, d), "normal", 0.02))
-    out += _block(("blocks",), cfg, lead=(cfg["n_layers"],))
+    first = fam.block_specs(cfg, 0)
+    for i in range(1, L):
+        if fam.block_specs(cfg, i) != first:
+            raise ValueError(
+                f"the gspmd layout stacks the blocks, and layer {i} of "
+                f"family {cfg['family']!r} differs from layer 0")
+    out += [(("blocks",) + path, (L,) + shape, kind, scale)
+            for path, shape, kind, scale in first]
     return out
 
 

@@ -6,8 +6,10 @@ for the gradients of activations and of weights), nothing recomputed.  A
 forward is 2 FLOPs a multiply-add of every matrix product: each token
 through every projection, MLP and head weight, and attention's two
 products (scores and the weighted values) over the full square
-``S x S`` of every head, the causal half not taken off.  Embedding
-look-ups, norms, softmax and the update count nothing.
+``S x S`` of every head, the causal half not taken off; an expert layer
+counts the experts a token goes through, not all of them.  Embedding
+look-ups, norms, softmax and the update count nothing.  A block's count
+is its family's (``portbench/families/<family>.py``, ``block_flops``).
 
 Codec bytes: each input byte read once and each output byte written once.
 A compressed edge runs one encode and one decode a direction: the encode
@@ -22,31 +24,22 @@ from __future__ import annotations
 
 from typing import Iterable, Tuple
 
+from portbench.harness import manifest
+
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 BLOCK = 4096
 
 
-def matmul_params(cfg: dict) -> int:
-    """Entries of every weight a token goes through by a matrix product."""
-    d, dff = cfg["d_model"], cfg["d_ff"]
-    q = cfg["n_heads"] * cfg["head_dim"]
-    kv = cfg["n_kv_heads"] * cfg["head_dim"]
-    mlp = (3 if cfg["act"] == "silu" else 2) * d * dff
+def step_flops(cfg: dict, batch: int, seq: int) -> float:
+    """Three forwards: each block's ``block_flops`` (its family's) and the
+    head."""
+    fam = manifest.family(cfg)
     p = max(cfg["vocab_pad_to"], 1)
     V = (cfg["vocab"] + p - 1) // p * p
-    return cfg["n_layers"] * (d * q + 2 * d * kv + q * d + mlp) + d * V
-
-
-def attention_flops(cfg: dict, batch: int, seq: int) -> float:
-    """Forward FLOPs of attention's two products, full square."""
-    return (cfg["n_layers"] * 2 * 2.0 * batch * seq * seq
-            * cfg["n_heads"] * cfg["head_dim"])
-
-
-def step_flops(cfg: dict, batch: int, seq: int) -> float:
-    return 3.0 * (2.0 * batch * seq * matmul_params(cfg)
-                  + attention_flops(cfg, batch, seq))
+    blocks = sum(fam.block_flops(cfg, i, batch, seq)
+                 for i in range(cfg["n_layers"]))
+    return 3.0 * (blocks + 2.0 * batch * seq * cfg["d_model"] * V)
 
 
 def codec_bytes(numel: int, k: int, itemsize: int = 4) -> Tuple[int, int]:

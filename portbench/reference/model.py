@@ -2,14 +2,16 @@
 gradients in plain PyTorch, the wire's Top-K on each planned edge in both
 directions, global-norm clipping where the traffic asks for it, and AdamW.
 
-It follows the published architectures: GPT-2 (LayerNorm, learned
-positions, tanh GELU) and Mistral (RMSNorm, rotary positions, grouped-query
-attention, SiLU-gated MLP), on the parameter trees the benchmark makes
-(``portbench.harness.weights``).  Departures, kept so that it computes the
-run's model: the rotary pairs are adjacent dimensions (0, 1), (2, 3), ...
-(a fixed permutation of the query and key columns from the published
-halves); the fusion layout's head has its own norm and takes the padded
-vocabulary into the softmax, the whole-model layout masks the padding.
+It follows the published architectures on the parameter trees the
+benchmark makes (``portbench.harness.weights``): the embedding (learned
+positions where the configuration has no rotary ones), the blocks of the
+configuration's family (``portbench/families/<family>.py``, each layer's
+forward and the term it adds to the loss), the head and the token
+cross-entropy.  Departures, kept so that it computes the run's model:
+the rotary pairs are adjacent dimensions (0, 1), (2, 3), ... (a fixed
+permutation of the query and key columns from the published halves);
+the fusion layout's head has its own norm and takes the padded vocabulary
+into the softmax, the whole-model layout masks the padding.
 
 A compressed edge carries ``x`` with, in each block of 4096 entries of the
 flat tensor, all but the ``k`` largest magnitudes zeroed; ties at the k-th
@@ -25,6 +27,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from portbench.harness import manifest
 
 BLOCK = 4096
 
@@ -100,48 +104,6 @@ def rotary(x: torch.Tensor, theta: float) -> torch.Tensor:
     return out.reshape(x.shape).to(x.dtype)
 
 
-def attention(cfg: dict, p: dict, x: torch.Tensor) -> torch.Tensor:
-    B, S, _ = x.shape
-    H, Hkv, hd = cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"]
-    q = (x @ p["wq"]["w"].to(x.dtype)).view(B, S, H, hd)
-    k = (x @ p["wk"]["w"].to(x.dtype)).view(B, S, Hkv, hd)
-    v = (x @ p["wv"]["w"].to(x.dtype)).view(B, S, Hkv, hd)
-    if cfg["rope_fraction"] > 0:
-        q, k = rotary(q, cfg["rope_theta"]), rotary(k, cfg["rope_theta"])
-    if Hkv != H:
-        k = k.repeat_interleave(H // Hkv, dim=2)
-        v = v.repeat_interleave(H // Hkv, dim=2)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))     # (B, H, S, hd)
-    scores = (q @ k.transpose(-1, -2)).to(torch.float32) / math.sqrt(hd)
-    causal = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
-    scores = scores.masked_fill(~causal, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = (probs @ v).transpose(1, 2).reshape(B, S, H * hd)
-    return out @ p["wo"]["w"].to(x.dtype)
-
-
-def mlp(cfg: dict, p: dict, x: torch.Tensor,
-        split: bool = False) -> torch.Tensor:
-    """The MLP; ``split`` sums the down projection over two halves of its
-    inner dimension, the same product in another order of additions."""
-    up = x @ p["up"]["w"].to(x.dtype)
-    if cfg["act"] == "silu":
-        h = F.silu(x @ p["gate"]["w"].to(x.dtype)) * up
-    else:
-        h = F.gelu(up, approximate="tanh")
-    w = p["down"]["w"].to(x.dtype)
-    if split:
-        half = w.shape[0] // 2
-        return h[..., :half] @ w[:half] + h[..., half:] @ w[half:]
-    return h @ w
-
-
-def block(cfg: dict, p: dict, x: torch.Tensor,
-          split: bool = False) -> torch.Tensor:
-    x = x + attention(cfg, p["attn"], norm(cfg, p["ln1"], x))
-    return x + mlp(cfg, p["mlp"], norm(cfg, p["ln2"], x), split)
-
-
 def _unstack(tree):
     if isinstance(tree, dict):
         keys = list(tree)
@@ -154,9 +116,11 @@ def loss(cfg: dict, layout: str, params: dict, tokens: torch.Tensor,
          labels: torch.Tensor, edge_k: Dict[Tuple[str, str], int],
          dtype=torch.float32, split: bool = False) -> torch.Tensor:
     """Mean token cross-entropy of the model on ``tokens`` against
-    ``labels``; the output of op ``a`` crosses ``wire(., k)`` before op
-    ``b`` for each ``(a, b): k`` in ``edge_k`` (fusion layout's op names:
-    ``embed``, ``block_i``, ``head``, ``loss``)."""
+    ``labels``, plus the blocks' loss terms; the output of op ``a``
+    crosses ``wire(., k)`` before op ``b`` for each ``(a, b): k`` in
+    ``edge_k`` (fusion layout's op names: ``embed``, ``block_i``,
+    ``head``, ``loss``)."""
+    fam = manifest.family(cfg)
     S = tokens.shape[1]
     tok = tokens.to(torch.int64)
     L = cfg["n_layers"]
@@ -176,8 +140,11 @@ def loss(cfg: dict, layout: str, params: dict, tokens: torch.Tensor,
         blocks = _unstack(params["blocks"])
         head_norm, head_w = params["final_norm"], params["head"]["w"]
     x = wire(x, after["embed"])
+    term = 0.0
     for i, p in enumerate(blocks):
-        x = wire(block(cfg, p, x, split), after[f"block_{i}"])
+        x, t = fam.block(cfg, p, x, i, split)
+        x = wire(x, after[f"block_{i}"])
+        term = term + t
     logits = norm(cfg, head_norm, x) @ head_w.to(dtype)
     if layout != "fusion" and logits.shape[-1] != cfg["vocab"]:
         pad = torch.arange(logits.shape[-1], device=logits.device) \
@@ -185,7 +152,7 @@ def loss(cfg: dict, layout: str, params: dict, tokens: torch.Tensor,
         logits = logits.masked_fill(pad, -1e30)
     logits = wire(logits, after["head"])
     return F.cross_entropy(logits.to(torch.float32).flatten(0, 1),
-                           labels.to(torch.int64).flatten())
+                           labels.to(torch.int64).flatten()) + term
 
 
 # ------------------------------------------------------------ the update --
@@ -219,8 +186,8 @@ def train_readings(cfg: dict, layout: str, traffic: dict, params: dict,
     readings the comparison takes: each step's loss, each leaf's norm of
     the first step's gradient as AdamW gets it (after clipping), and each
     leaf's parameters' values, for the caller's change norms.  ``split``
-    re-associates the MLP's down projection (a witness of how far fp32
-    rounding alone moves the readings)."""
+    re-associates one product in each block (the family's; a witness of
+    how far fp32 rounding alone moves the readings)."""
     named = list(leaves(params))
     for _, t in named:
         t.requires_grad_(True)

@@ -2,7 +2,7 @@
 configuration and the traffic: a frozen copy of the OP-Fence scheduler and
 the uniform and AdaTopK compression plans, as the paper describes them
 (FusionLLM section 4 and Eq. 7), for the decoder-only OP-DAG of one node
-a block.
+a block, whatever the block's family.
 
 The reference model reads only what this returns: the op chain cut into
 pipeline stages and, for every edge that crosses two stages, the ratio
@@ -23,6 +23,8 @@ import itertools
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from portbench.harness import manifest
 
 # ----------------------------------------------------------- testbed 1 ---
 RTX4090, RTX2080 = 165.16e12, 40.0e12          # fp16 tensor FLOP/s sheets
@@ -162,18 +164,16 @@ def _path(clusters: List[List[int]], bw: np.ndarray) -> List[int]:
 # ------------------------------------------------------------- the DAG ---
 def op_chain(cfg: dict, batch: int, seq: int):
     """[(name, forward FLOPs, output float32 bytes, output numel)] of the
-    compute ops, in chain order."""
+    compute ops, in chain order; a block's FLOPs are its family's
+    ``block_flops``."""
+    fam = manifest.family(cfg)
     d, L = cfg["d_model"], cfg["n_layers"]
-    H, Hkv, hd = cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"]
     V = vocab_padded(cfg)
     T = batch * seq
-    attn = (2.0 * T * d * (H * hd) + 2.0 * 2.0 * T * d * (Hkv * hd)
-            + 2.0 * T * (H * hd) * d) + 2.0 * 2.0 * T * seq * H * hd
-    mults = 3 if cfg["act"] == "silu" else 2
-    blk = attn + 2.0 * T * d * cfg["d_ff"] * mults
     act = T * d
     ops = [("embed", 0.0, act * 4, act)]
-    ops += [(f"block_{i}", blk, act * 4, act) for i in range(L)]
+    ops += [(f"block_{i}", fam.block_flops(cfg, i, batch, seq), act * 4, act)
+            for i in range(L)]
     ops += [("head", 2.0 * T * d * V, T * V * 4, T * V),
             ("loss", float(T * V), 0, 1)]
     return ops

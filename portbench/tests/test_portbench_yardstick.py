@@ -5,6 +5,8 @@ import pytest
 from portbench.harness import manifest, weights, yardstick
 from portbench.reference import planner
 
+DENSE = manifest.family_module("dense")
+
 
 def cfg(name):
     return manifest.cell(name)["config"]
@@ -18,7 +20,7 @@ def test_gpt2_xl_matmul_parameters():
     # 48 blocks of 4 d^2 (q, k, v, o) + 2 d d_ff, and the head d x 50,432
     by_hand = 48 * (4 * 1600 ** 2 + 2 * 1600 * 6400) + 1600 * 50432
     assert by_hand == 1_555_251_200
-    assert yardstick.matmul_params(cfg(GPT)) == by_hand
+    assert 48 * DENSE.matmul_params(cfg(GPT)) + 1600 * 50432 == by_hand
 
 
 def test_gpt2_xl_step_flops_at_2x1024():
@@ -26,6 +28,7 @@ def test_gpt2_xl_step_flops_at_2x1024():
     weights_part = 6 * 1_555_251_200 * 2048
     attention = 3 * 4 * 2 * 1024 ** 2 * 25 * 64 * 48
     assert attention == pytest.approx(1.9327e12, rel=1e-4)
+    assert 3 * 48 * DENSE.attention_flops(cfg(GPT), 2, 1024) == attention
     assert yardstick.step_flops(cfg(GPT), 2, 1024) == pytest.approx(
         weights_part + attention, rel=1e-12)
     assert yardstick.step_flops(cfg(GPT), 2, 1024) == pytest.approx(
@@ -38,7 +41,8 @@ def test_nemo_l6_parameters():
     block = 5120 * q + 2 * 5120 * kv + q * 5120 + 3 * 5120 * 14336
     assert block == 272_629_760
     head = 5120 * 131072
-    assert yardstick.matmul_params(c) == 6 * block + head == 2_306_867_200
+    assert DENSE.matmul_params(c) == block
+    assert 6 * block + head == 2_306_867_200
     norms = 6 * 2 * 5120 + 5120
     total = 6 * block + 2 * head + norms
     assert weights.count(c, "fusion", 128) == total
